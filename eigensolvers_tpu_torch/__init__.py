@@ -1,0 +1,56 @@
+"""eigensolvers_tpu_torch — the PyTorch/CUDA port of eigensolvers_tpu.
+
+Computes a few interior eigenpairs of large Hermitian operators near a
+target energy with inexact shift-and-invert Lanczos, written against the
+same ``AbstractVector`` contract, entry points, status keys and output
+files as the JAX package ``eigensolvers_tpu`` beside it.
+
+Design:
+  * compute path: PyTorch tensors on an explicit device; the block-sparse
+    SpMV runs hand-written CUDA kernels (``csrc/``) on the card and plain
+    PyTorch on the CPU;
+  * operators are ``torch.nn.Module``s holding their arrays as buffers;
+  * no global switches: dtypes are explicit (float64 where the 1e-14
+    lindep contract needs it), and fp32 products must run with TF32 off
+    (``torch.backends.cuda.matmul.allow_tf32 = False``).
+
+This package never imports jax or ``eigensolvers_tpu``.
+"""
+
+from .vectors.dense import TorchVector
+from .ops.operators import DenseOperator, DiagonalOperator, as_operator
+from .ops.sparse import BSROperator
+from .solvers.lanczos import inexactLanczosDiagonalization
+from .utils.subspace import (
+    basisTransformation,
+    calculateTarget,
+    diagonalizeHamiltonian,
+    eigenvalueResidual,
+    find_nearest,
+    get_pick_function_close_to_sigma,
+    get_pick_function_maxOvlp,
+    lowdinOrtho,
+    lowdinOrthoMatrix,
+    select_within_range,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "TorchVector",
+    "BSROperator",
+    "DenseOperator",
+    "DiagonalOperator",
+    "as_operator",
+    "inexactLanczosDiagonalization",
+    "basisTransformation",
+    "calculateTarget",
+    "diagonalizeHamiltonian",
+    "eigenvalueResidual",
+    "find_nearest",
+    "get_pick_function_close_to_sigma",
+    "get_pick_function_maxOvlp",
+    "lowdinOrtho",
+    "lowdinOrthoMatrix",
+    "select_within_range",
+]

@@ -1,0 +1,144 @@
+"""Shared helpers of the torch port's parity tests (imported by the other
+``test_torch_*`` files), and parity tests of the modules the port copied
+from the JAX package (config, units, subspace, checkpointing).
+
+Every parity test makes its inputs with numpy from a seed and hands the
+same numbers to both packages; operators cross through
+``eigensolvers_tpu_torch.convert.operator_from_arrays`` and vectors through
+the state-dict round trip.
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import jax
+from eigensolvers_tpu import JaxVector
+from eigensolvers_tpu.utils import checkpointing as jax_ckpt
+from eigensolvers_tpu.utils import subspace as jax_subspace
+
+from eigensolvers_tpu_torch import TorchVector
+from eigensolvers_tpu_torch.config import FeastConfig
+from eigensolvers_tpu_torch.convert import operator_from_arrays
+from eigensolvers_tpu_torch.ops.operators import resolve_precision
+from eigensolvers_tpu_torch.utils import checkpointing as torch_ckpt
+from eigensolvers_tpu_torch.utils import subspace as torch_subspace
+from eigensolvers_tpu_torch.utils import units as torch_units
+
+# tier-1 runs six xdist workers: one intra-op thread each
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+
+
+def banded(n, bw=3, seed=0):
+    """Symmetric banded matrix (tests/test_sparse.py::_banded)."""
+    rng = np.random.RandomState(seed)
+    d = [rng.rand(n - abs(k)) for k in range(-bw, bw + 1)]
+    H = sp.diags(d, offsets=range(-bw, bw + 1)).toarray()
+    return (H + H.T) / 2
+
+
+def dd_matrix(n, seed=3, dominance=2.5):
+    """Diagonally dominant symmetric matrix with spread-out diagonal
+    (tests/test_preconditioner.py::_dd_matrix)."""
+    rng = np.random.RandomState(seed)
+    A = rng.rand(n, n) - 0.5
+    A = (A + A.T) / 2
+    A[np.diag_indices(n)] = np.linspace(1.0, 50.0, n) * dominance
+    return A
+
+
+def torch_op(jop, device=CPU):
+    """The port's operator carrying a JAX operator's arrays as stored."""
+    if hasattr(jop, "dataT"):
+        arrays = {"dataT": np.asarray(jop.dataT), "idx": np.asarray(jop.idx),
+                  "n": jop.n, "precision": jop.precision}
+    else:
+        arrays = {"mat": np.asarray(jop.mat), "precision": jop.precision}
+    return operator_from_arrays(arrays, device)
+
+
+def torch_vec(jv, options=None):
+    """The port's vector from a JaxVector's state dict."""
+    return TorchVector.from_state_dict(jv.to_state_dict(), options)
+
+
+def as_np(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+# ---------------------------------------------------------------------------
+# copied modules
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", ["default", "high", "highest"])
+def test_resolve_precision_accepts_names_and_jax_values(name):
+    assert resolve_precision(name) == name
+    assert resolve_precision(name.upper()) == name
+    assert resolve_precision(getattr(jax.lax.Precision, name.upper())) == name
+
+
+def test_resolve_precision_rejects_unknown():
+    assert resolve_precision(None) == "default"
+    with pytest.raises(ValueError, match="precision"):
+        resolve_precision("tf32")
+
+
+def test_feast_config_run_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP.*FEAST"):
+        FeastConfig().run(None, None)
+
+
+def test_units_match_reference():
+    from eigensolvers_tpu.utils import units as jax_units
+    for unit in ("cm-1", "ev", "k", "nm"):
+        np.testing.assert_array_equal(torch_units.au2unit(0.25, unit),
+                                      jax_units.au2unit(0.25, unit))
+        np.testing.assert_array_equal(torch_units.unit2au(3.0, unit),
+                                      jax_units.unit2au(3.0, unit))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_subspace_numerics_match_reference(seed):
+    """Löwdin orthogonalization, projected diagonalization and the pick
+    functions give the JAX package's numbers on the same matrices."""
+    rng = np.random.RandomState(seed)
+    A = rng.standard_normal((6, 6))
+    S = A @ A.T + 1e-3 * np.eye(6)
+    Hm = rng.standard_normal((6, 6))
+    Hm = Hm + Hm.T
+    ia, _, Xa = torch_subspace.lowdinOrtho(S)
+    ib, _, Xb = jax_subspace.lowdinOrtho(S)
+    np.testing.assert_array_equal(ia, ib)
+    np.testing.assert_allclose(Xa, Xb, rtol=1e-12)
+    ea, _ = torch_subspace.diagonalizeHamiltonian(Xa, Hm)
+    eb, _ = jax_subspace.diagonalizeHamiltonian(Xb, Hm)
+    np.testing.assert_allclose(ea, eb, rtol=1e-12)
+    np.testing.assert_array_equal(
+        torch_subspace.get_pick_function_close_to_sigma(0.3)(None, None, ea),
+        jax_subspace.get_pick_function_close_to_sigma(0.3)(None, None, eb))
+    assert torch_subspace.eigenvalueResidual(ea, eb + 1e-3) == \
+        jax_subspace.eigenvalueResidual(ea, eb + 1e-3)
+
+
+def test_checkpoints_cross_between_packages(tmp_path):
+    """A basis saved by either package loads into the other."""
+    rng = np.random.RandomState(4)
+    arrays = [rng.standard_normal(40) for _ in range(3)]
+    status = {"cumIter": 3, "ev": np.arange(3.0)}
+    torch_ckpt.save_checkpoint(str(tmp_path / "t"), 3,
+                               [TorchVector(a) for a in arrays], status,
+                               eigenvalues=np.arange(3.0))
+    jvs, jmeta = jax_ckpt.load_checkpoint(str(tmp_path / "t"), 3, JaxVector)
+    jax_ckpt.save_checkpoint(str(tmp_path / "j"), 5,
+                             [JaxVector(a) for a in arrays], status)
+    tvs, tmeta = torch_ckpt.load_checkpoint(str(tmp_path / "j"), 5,
+                                            TorchVector)
+    for a, jv, tv in zip(arrays, jvs, tvs):
+        np.testing.assert_array_equal(np.asarray(jv.array), a)
+        np.testing.assert_array_equal(as_np(tv.array), a)
+    assert jmeta["status"] == tmeta["status"]
+    assert torch_ckpt.latest_tag(str(tmp_path / "j")) == 5
+    assert torch_ckpt.default_async_writer() is None
