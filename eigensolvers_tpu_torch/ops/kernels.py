@@ -65,23 +65,41 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def _load(name: str, signatures: dict) -> ctypes.CDLL:
+    """Build ``csrc/{name}.cu``, load it and declare its entry points
+    (``signatures`` maps each to its argument types; each returns the CUDA
+    error code of its launch).  ``lib.error_string`` names the library's
+    ``{name}_error_string``."""
+    lib = ctypes.CDLL(str(build(name)))
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _I
+    lib.error_string = getattr(lib, f"{name}_error_string")
+    lib.error_string.argtypes = [_I]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def bsr_spmv_library() -> ctypes.CDLL:
-    """The block-ELL SpMV kernels (``csrc/bsr_spmv.cu``), built on first
-    call."""
-    lib = ctypes.CDLL(str(build("bsr_spmv")))
-    for fn in (lib.bsr_spmv_f32, lib.bsr_spmv_f64):
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
-        fn.restype = _I
-    lib.bsr_spmv_split_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
-    lib.bsr_spmv_split_f32.restype = _I
-    lib.bsr_spmv_error_string.argtypes = [_I]
-    lib.bsr_spmv_error_string.restype = ctypes.c_char_p
-    return lib
+    """The single-vector block-ELL SpMV kernels (``csrc/bsr_spmv.cu``, B1
+    and B2), built on first call."""
+    one = [_P, _P, _P, _P, _I, _I, _I, _P]
+    return _load("bsr_spmv", {"bsr_spmv_f32": one, "bsr_spmv_f64": one,
+                              "bsr_spmv_split_f32": [_P, *one]})
+
+
+@functools.cache
+def bsr_spmm_library() -> ctypes.CDLL:
+    """The multi-vector block-ELL kernels (``csrc/bsr_spmm.cu``, B3), built
+    on first call."""
+    many = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+    return _load("bsr_spmm", {"bsr_spmm_f32": many, "bsr_spmm_f64": many,
+                              "bsr_spmm_split_f32": [_P, *many]})
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if code != 0:
-        msg = lib.bsr_spmv_error_string(code).decode()
+        msg = lib.error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")

@@ -7,8 +7,16 @@ buffers, so ``.to(device)`` moves them and ``state_dict()`` saves them.
 
 * :class:`DenseOperator` — explicit (n, n) matrix; matvec is a GEMV.
 * :class:`DiagonalOperator` — diagonal matrix; matvec is elementwise.
+* :class:`CallableOperator` — a matvec callable with a shape (the analogue
+  of a scipy ``LinearOperator``, which ``as_operator`` wraps in one).
+* :class:`PaddedOperator` — an operator zero-embedded into a larger space.
 * :class:`~eigensolvers_tpu_torch.ops.sparse.BSROperator` — block-ELL
-  sparse matrix, applied by the hand-written CUDA SpMV kernels.
+  sparse matrix, applied by the hand-written CUDA kernels.
+
+Every operator applies to one vector (``matvec``) and to a lane stack of m
+vectors, one per row (``matvec_lanes``: (m, n) -> (m, n)), the layout the
+batched solves keep their vectors in; ``matmat`` (n, m) -> (n, m) is the
+lane apply of the transpose.
 """
 
 from __future__ import annotations
@@ -73,12 +81,15 @@ class AbstractOperator(torch.nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.matvec(x)
 
+    def matvec_lanes(self, X: torch.Tensor) -> torch.Tensor:
+        """Apply to each row of a lane stack: X (m, n) -> (m, n).  The
+        default applies the matvec row by row; operators with a fused
+        multi-vector path override it."""
+        return torch.stack([self.matvec(x) for x in X])
+
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
-        """Apply to m stacked RHS: X (n, m) -> (n, m).  The default applies
-        the matvec column by column; operators with a fused multi-RHS path
-        override it."""
-        return torch.stack([self.matvec(X[:, k]) for k in range(X.shape[1])],
-                           dim=1)
+        """Apply to m stacked RHS: X (n, m) -> (n, m)."""
+        return self.matvec_lanes(X.T).T
 
     def to_dense(self) -> torch.Tensor:
         """Materialize as a dense (n, n) tensor (oracle/small paths only)."""
@@ -120,10 +131,10 @@ class DenseOperator(AbstractOperator):
         y = self.mat.to(dtype) @ flat.to(dtype)
         return y.reshape(x.shape)
 
-    def matmat(self, X):
+    def matvec_lanes(self, X):
         dtype = torch.promote_types(self.mat.dtype, X.dtype)
         require_true_fp32(X.to(dtype))
-        return self.mat.to(dtype) @ X.to(dtype)
+        return X.to(dtype) @ self.mat.to(dtype).T
 
     def to_dense(self):
         return self.mat
@@ -151,8 +162,8 @@ class DiagonalOperator(AbstractOperator):
     def matvec(self, x):
         return (self.diag * x.reshape(-1)).reshape(x.shape)
 
-    def matmat(self, X):
-        return self.diag[:, None] * X
+    def matvec_lanes(self, X):
+        return self.diag * X
 
     def to_dense(self):
         return torch.diag(self.diag)
@@ -161,12 +172,87 @@ class DiagonalOperator(AbstractOperator):
         return self.diag
 
 
+class CallableOperator(AbstractOperator):
+    """Wraps a matvec callable ``fn`` of a tensor (the analogue of a scipy
+    ``LinearOperator``).  ``dtype`` is a torch dtype or anything numpy reads
+    as one; the result of ``fn`` comes back as a tensor on the input's
+    device."""
+
+    def __init__(self, fn, shape, dtype=torch.float64):
+        super().__init__()
+        self.fn = fn
+        self._shape = tuple(int(s) for s in shape)
+        if not isinstance(dtype, torch.dtype):
+            dtype = torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+        self._dtype = dtype
+
+    @property
+    def shape(self):
+        return self._shape
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    def matvec(self, x):
+        return as_tensor(self.fn(x), x.device).reshape(x.shape)
+
+    def to_dense(self):
+        n = self._shape[0]
+        return self.matmat(torch.eye(n, dtype=self._dtype))
+
+
+class PaddedOperator(AbstractOperator):
+    """Zero-embeds an (n, n) operator into (n_pad, n_pad): the matvec keeps
+    the padding lanes exactly zero (y[n:] = 0), so Krylov iterations started
+    from zero-padded b never leave the logical subspace.  The shifted
+    operator (sigma*I - H_pad) acts as sigma*I on the padding block, which
+    makes the *exact* dense path singular at sigma == 0, so exact solves
+    slice back to the logical block instead."""
+
+    def __init__(self, op: AbstractOperator, n_pad: int):
+        super().__init__()
+        if n_pad < op.shape[0]:
+            raise ValueError(f"n_pad={n_pad} < n={op.shape[0]}")
+        self.op = op
+        self.n_pad = int(n_pad)
+
+    @property
+    def shape(self):
+        return (self.n_pad, self.n_pad)
+
+    @property
+    def dtype(self):
+        return self.op.dtype
+
+    def _embed(self, Y):
+        return torch.nn.functional.pad(Y, (0, self.n_pad - self.op.shape[0]))
+
+    def matvec(self, x):
+        return self._embed(self.op.matvec(x[:self.op.shape[0]]))
+
+    def matvec_lanes(self, X):
+        return self._embed(self.op.matvec_lanes(X[:, :self.op.shape[0]]))
+
+    def to_dense(self):
+        d = self.op.to_dense()
+        return self._embed(torch.nn.functional.pad(
+            d, (0, 0, 0, self.n_pad - d.shape[0])))
+
+    def diagonal(self):
+        d = self.op.diagonal()
+        return None if d is None else self._embed(d)
+
+
 def as_operator(H, device=None) -> AbstractOperator:
     """Coerce a user-provided operator-like object into an AbstractOperator.
 
     Accepts: AbstractOperator (returned as-is), 2-D numpy array or tensor
-    (→ DenseOperator), scipy.sparse matrix (→ BSROperator).  ``device``
-    places a new operator (default: the tensor's device, else the CPU)."""
+    (→ DenseOperator), scipy.sparse matrix (→ BSROperator), and objects with
+    ``.matvec`` and ``.shape`` such as a scipy ``LinearOperator``
+    (→ CallableOperator; their matvec takes and returns numpy arrays, so
+    each apply passes through the host).  ``device`` places a new operator
+    (default: the tensor's device, else the CPU)."""
     if isinstance(H, AbstractOperator):
         return H
     if isinstance(H, (np.ndarray, torch.Tensor)) and H.ndim == 2:
@@ -175,4 +261,8 @@ def as_operator(H, device=None) -> AbstractOperator:
     if sp.issparse(H):
         from .sparse import BSROperator
         return BSROperator.from_scipy(H, device=device)
+    if hasattr(H, "matvec") and hasattr(H, "shape"):
+        dtype = getattr(H, "dtype", None)
+        return CallableOperator(lambda x: H.matvec(x.detach().cpu().numpy()),
+                                H.shape, np.float64 if dtype is None else dtype)
     raise TypeError(f"cannot interpret {type(H)} as an operator")

@@ -1,4 +1,5 @@
-"""Block-sparse operator with hand-written CUDA SpMV kernels.
+"""Block-sparse and banded operators; the block-sparse one applies through
+hand-written CUDA kernels.
 
 :class:`BSROperator` — block-ELL layout (fixed number of BxB blocks per
 block-row, zero-padded): ``dataT (nrb, nbpr, B, B)``, ``idx (nrb, nbpr)``.
@@ -7,20 +8,27 @@ block product.  Block data is stored per-block TRANSPOSED, the layout every
 apply path consumes (``dataT[r, t, j, i] = H[r*B + i, idx[r, t]*B + j]``),
 so no apply re-transposes the whole array.
 
-Execution paths of the single-RHS matvec, chosen by the device of the
-tensors alone:
+Execution paths, chosen by the device of the tensors alone:
 
-* CUDA tensor, ``precision`` "highest" or "default", f32 or f64:
-  :func:`bsr_matvec` launches the ``bsr_spmv`` kernel (``csrc/bsr_spmv.cu``),
-  the port of the JAX package's Pallas kernel ``_bsr_matvec_pallas``;
-* CUDA tensor, ``precision="high"``, f32: :func:`bsr_matvec_split` launches
-  the bf16x3 ``bsr_spmv_split`` kernel (port of ``_bsr_matvec_pallas_split``);
+* single vector (:meth:`BSROperator.matvec`) on a CUDA tensor: the
+  ``bsr_spmv`` kernel (``csrc/bsr_spmv.cu``, B1), the port of the JAX
+  package's Pallas kernel ``_bsr_matvec_pallas``, at "highest" or
+  "default" for f32 or f64; at ``precision="high"`` on f32 data the bf16x3
+  ``bsr_spmv_split`` kernel (B2, port of ``_bsr_matvec_pallas_split``);
+* a lane stack of m vectors (:meth:`BSROperator.matvec_lanes`, under
+  ``matmat`` and every batched solve) on a CUDA tensor: the ``bsr_spmm``
+  kernel (``csrc/bsr_spmm.cu``, B3), which replaces the JAX package's XLA
+  ``_bsr_matmat_xla``; at "high" on f32 data its bf16x3 form
+  ``bsr_spmm_split``, so a lane sees the same operator as a single vector;
 * CPU tensor: the plain PyTorch versions (gather + einsum), which are also
   the references the kernels are tested against.
 
 A CUDA tensor reaches its kernel or raises; nothing falls back to the plain
-version.  The multi-RHS :meth:`BSROperator.matmat` is gather + einsum on
-every device (its hand-written kernel is ROADMAP Queue B, B3).
+version.
+
+:class:`BandedOperator` (diagonals at fixed offsets) is plain PyTorch on
+every device: static shifted slices, no gather (the JAX package leaves it
+to XLA too).
 """
 
 from __future__ import annotations
@@ -28,14 +36,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernels import bsr_spmv_library, check
+from .kernels import bsr_spmm_library, bsr_spmv_library, check
 from .operators import AbstractOperator, as_tensor, resolve_precision
 
 #: Kernel launches since the last :func:`reset_launch_counts`, by kernel.
 #: Each CUDA wrapper adds one where it launches its kernel, and nowhere else.
-launches = {"bsr_spmv": 0, "bsr_spmv_split": 0}
+launches = {"bsr_spmv": 0, "bsr_spmv_split": 0, "bsr_spmm": 0,
+            "bsr_spmm_split": 0}
 
 _MAX_BLOCK = 1024   # one thread per block row: the CUDA block-size limit
+_MAX_LANES = 8 * 65535   # B3 runs chunks of 8 vectors on the grid's y axis
 
 
 def reset_launch_counts() -> None:
@@ -152,8 +162,9 @@ class BSROperator(AbstractOperator):
         return cls(dataT, idx, n, precision=precision, device=device)
 
     # -- application --------------------------------------------------------
-    def _pad(self, flat: torch.Tensor, dtype) -> torch.Tensor:
-        xp = flat.to(dtype)
+    def _pad(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        """Zero-pad the last axis from n to n_padded, contiguous."""
+        xp = x.to(dtype)
         if self.n_padded != self.n:
             xp = torch.nn.functional.pad(xp, (0, self.n_padded - self.n))
         return xp.contiguous()
@@ -168,17 +179,19 @@ class BSROperator(AbstractOperator):
             yp = bsr_matvec(self.dataT.to(dtype), self.idx, xp)
         return yp[:self.n].reshape(x.shape)
 
-    def matmat(self, X):
-        """Apply to m stacked RHS at once: X (n, m) -> (n, m).
-
-        One gather + one einsum: the block data is read once and reused
-        across all m columns."""
-        if X.ndim != 2 or X.shape[0] != self.n:
-            raise ValueError(f"bad RHS shape {tuple(X.shape)}")
+    def matvec_lanes(self, X):
+        """Apply to each row of the lane stack X (m, n) -> (m, n) in one
+        multi-vector product: the block data is read once for all m rows.
+        At "high" on f32 data this is the bf16x3 product, like ``matvec``."""
+        if X.ndim != 2 or X.shape[1] != self.n:
+            raise ValueError(f"bad lane stack shape {tuple(X.shape)}")
         dtype = torch.promote_types(self.dtype, X.dtype)
-        Xp = self._pad(X.T, dtype)                   # (m, npad)
-        Yp = bsr_matmat_plain(self.dataT.to(dtype), self.idx, Xp)
-        return Yp[:, :self.n].T
+        Xp = self._pad(X, dtype)                     # (m, npad)
+        if self.dataT_hi is not None and dtype == torch.float32:
+            Yp = bsr_matmat_split(self.dataT_hi, self.dataT_lo, self.idx, Xp)
+        else:
+            Yp = bsr_matmat(self.dataT.to(dtype), self.idx, Xp)
+        return Yp[:, :self.n]
 
     def diagonal(self):
         """diag(H): the (i, i) entries of the diagonal blocks (block rows
@@ -214,18 +227,19 @@ def bsr_matvec_plain(dataT, idx, xp):
     return torch.einsum("rtji,rtj->ri", dataT, gathered).reshape(-1)
 
 
-def bsr_matvec_split_plain(hiT, loT, idx, xp):
+def bsr_matvec_split_plain(hiT, loT, idx, xp, acc=torch.float32):
     """bf16x3 ("high") single RHS: x split into bf16 hi/lo like the blocks,
-    y = xh·Bh + xh·Bl + xl·Bh accumulated in f32 (each bf16 product is exact
-    in f32)."""
+    y = xh·Bh + xh·Bl + xl·Bh accumulated in ``acc`` (each bf16 product is
+    exact in f32).  ``acc=torch.float64`` sums the same products in f64: the
+    exact split product, the oracle the split kernels are held to."""
     B = hiT.shape[2]
-    xh = xp.to(torch.bfloat16).float()
-    xl = (xp - xh).to(torch.bfloat16).float()
+    xh = xp.to(torch.bfloat16).to(acc)
+    xl = (xp.to(acc) - xh).to(torch.bfloat16).to(acc)
     ii = idx.long()
     gh = xh.reshape(-1, B)[ii]
     gl = xl.reshape(-1, B)[ii]
-    hi = hiT.float()
-    lo = loT.float()
+    hi = hiT.to(acc)
+    lo = loT.to(acc)
     y = torch.einsum("rtji,rtj->ri", hi, gh)
     y = y + torch.einsum("rtji,rtj->ri", lo, gh)
     y = y + torch.einsum("rtji,rtj->ri", hi, gl)
@@ -241,11 +255,32 @@ def bsr_matmat_plain(dataT, idx, Xp):
     return torch.einsum("rtji,mrtj->mri", dataT, gathered).reshape(m, -1)
 
 
+def bsr_matmat_split_plain(hiT, loT, idx, Xp, acc=torch.float32):
+    """bf16x3 ("high") multi-RHS: each row of Xp (m, npad) split into bf16
+    hi/lo as :func:`bsr_matvec_split_plain` splits one vector, the same
+    three products per row, accumulated in ``acc`` (f64: the exact split
+    product)."""
+    B = hiT.shape[2]
+    m = Xp.shape[0]
+    xh = Xp.to(torch.bfloat16).to(acc)
+    xl = (Xp.to(acc) - xh).to(torch.bfloat16).to(acc)
+    ii = idx.long()
+    gh = xh.reshape(m, -1, B)[:, ii]
+    gl = xl.reshape(m, -1, B)[:, ii]
+    hi = hiT.to(acc)
+    lo = loT.to(acc)
+    y = torch.einsum("rtji,mrtj->mri", hi, gh)
+    y = y + torch.einsum("rtji,mrtj->mri", lo, gh)
+    y = y + torch.einsum("rtji,mrtj->mri", hi, gl)
+    return y.reshape(m, -1)
+
+
 # ----------------------------------------------------------------------------
 # Kernel wrappers: CPU -> plain version, CUDA -> hand-written kernel or raise
 # ----------------------------------------------------------------------------
-def _check_launch(blocks, idx, xp):
-    """Validate what the kernels take; returns (nrb, nbpr, B)."""
+def _check_launch(blocks, idx, xp, lanes=False):
+    """Validate what the kernels take (x of shape (nrb*B,), or (m, nrb*B)
+    for ``lanes``); returns (nrb, nbpr, B)."""
     nrb, nbpr, B, B2 = blocks[0].shape
     if B != B2 or not 1 <= B <= _MAX_BLOCK:
         raise ValueError(f"block size {B} (x{B2}) not supported: the kernel "
@@ -255,7 +290,12 @@ def _check_launch(blocks, idx, xp):
     if tuple(idx.shape) != (nrb, nbpr) or idx.dtype != torch.int32:
         raise ValueError(f"idx must be int32 {(nrb, nbpr)}, got "
                          f"{idx.dtype} {tuple(idx.shape)}")
-    if tuple(xp.shape) != (nrb * B,):
+    if lanes:
+        if xp.ndim != 2 or xp.shape[1] != nrb * B \
+                or not 1 <= xp.shape[0] <= _MAX_LANES:
+            raise ValueError(f"X must be (m, {nrb * B}) with 1 <= m <= "
+                             f"{_MAX_LANES}, got {tuple(xp.shape)}")
+    elif tuple(xp.shape) != (nrb * B,):
         raise ValueError(f"x must be ({nrb * B},), got {tuple(xp.shape)}")
     for t in (*blocks, idx, xp):
         if t.device != xp.device:
@@ -314,3 +354,130 @@ def bsr_matvec_split(hiT, loT, idx, xp):
     check(lib, code, "bsr_spmv_split")
     launches["bsr_spmv_split"] += 1
     return y
+
+
+def bsr_matmat(dataT, idx, Xp):
+    """B3: ``Y = (A X^T)^T`` for the padded lane stack Xp (m, nrb*B), f32 or
+    f64, in one launch (replaces the JAX package's XLA
+    ``eigensolvers_tpu/ops/sparse.py::_bsr_matmat_xla``)."""
+    if Xp.device.type == "cpu":
+        return bsr_matmat_plain(dataT, idx, Xp)
+    if Xp.device.type != "cuda":
+        raise ValueError(f"no bsr_spmm kernel for device {Xp.device}")
+    nrb, nbpr, B = _check_launch((dataT,), idx, Xp, lanes=True)
+    if dataT.dtype not in (torch.float32, torch.float64) \
+            or Xp.dtype != dataT.dtype:
+        raise TypeError(f"bsr_spmm takes f32 or f64 data and X of the same "
+                        f"type, got {dataT.dtype} and {Xp.dtype}")
+    lib = bsr_spmm_library()
+    fn = lib.bsr_spmm_f32 if dataT.dtype == torch.float32 else lib.bsr_spmm_f64
+    Y = torch.empty_like(Xp)
+    with torch.cuda.device(Xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(dataT.data_ptr(), idx.data_ptr(), Xp.data_ptr(),
+                  Y.data_ptr(), nrb, nbpr, B, Xp.shape[0], stream)
+    check(lib, code, "bsr_spmm")
+    launches["bsr_spmm"] += 1
+    return Y
+
+
+def bsr_matmat_split(hiT, loT, idx, Xp):
+    """B3 at "high": the bf16x3 f32 product of pre-split bf16 blocks with
+    the lane stack Xp (m, nrb*B), in one launch."""
+    if Xp.device.type == "cpu":
+        return bsr_matmat_split_plain(hiT, loT, idx, Xp)
+    if Xp.device.type != "cuda":
+        raise ValueError(f"no bsr_spmm_split kernel for device {Xp.device}")
+    nrb, nbpr, B = _check_launch((hiT, loT), idx, Xp, lanes=True)
+    if hiT.dtype != torch.bfloat16 or loT.dtype != torch.bfloat16 \
+            or Xp.dtype != torch.float32:
+        raise TypeError(f"bsr_spmm_split takes bf16 hi/lo blocks and f32 X, "
+                        f"got {hiT.dtype}, {loT.dtype}, {Xp.dtype}")
+    lib = bsr_spmm_library()
+    Y = torch.empty_like(Xp)
+    with torch.cuda.device(Xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.bsr_spmm_split_f32(hiT.data_ptr(), loT.data_ptr(),
+                                      idx.data_ptr(), Xp.data_ptr(),
+                                      Y.data_ptr(), nrb, nbpr, B,
+                                      Xp.shape[0], stream)
+    check(lib, code, "bsr_spmm_split")
+    launches["bsr_spmm_split"] += 1
+    return Y
+
+
+class BandedOperator(AbstractOperator):
+    """Banded operator: H[i, i + offsets[j]] = bands[j, i].
+
+    The matvec is gather-free: each diagonal contributes
+    ``bands[j] * x[d_j : d_j + n]`` of a zero-padded x, static slices and
+    elementwise products, for one vector or a lane stack alike.  The
+    natural form for 1-D DVR chains (kinetic + potential) and
+    finite-difference Hamiltonians."""
+
+    def __init__(self, bands, offsets, n: int, device=None):
+        super().__init__()
+        bands = as_tensor(bands, device)
+        self.offsets = tuple(int(o) for o in offsets)
+        self.n = int(n)
+        if tuple(bands.shape) != (len(self.offsets), self.n):
+            raise ValueError(f"bands must be {(len(self.offsets), self.n)}, "
+                             f"got {tuple(bands.shape)}")
+        self.register_buffer("bands", bands)
+
+    @classmethod
+    def from_dense(cls, H, tol: float = 0.0, device=None) -> "BandedOperator":
+        H = np.asarray(H)
+        n = H.shape[0]
+        offsets = []
+        bands = []
+        for d in range(-(n - 1), n):
+            diag = np.diagonal(H, offset=d)
+            if np.any(np.abs(diag) > tol):
+                offsets.append(d)
+                row = np.zeros(n, H.dtype)
+                if d >= 0:
+                    row[:n - d] = diag
+                else:
+                    row[-d:] = diag
+                bands.append(row)
+        return cls(np.stack(bands), offsets, n, device=device)
+
+    @property
+    def shape(self):
+        return (self.n, self.n)
+
+    @property
+    def dtype(self):
+        return self.bands.dtype
+
+    @property
+    def bandwidth(self):
+        return max(abs(o) for o in self.offsets)
+
+    def matvec_lanes(self, X):
+        """Rows of X (..., n) -> (..., n)."""
+        dtype = torch.promote_types(self.dtype, X.dtype)
+        w = self.bandwidth
+        Xp = torch.nn.functional.pad(X.to(dtype), (w, w))
+        Y = torch.zeros_like(Xp[..., :self.n])
+        for j, d in enumerate(self.offsets):
+            Y = Y + self.bands[j].to(dtype) * Xp[..., w + d:w + d + self.n]
+        return Y
+
+    def matvec(self, x):
+        return self.matvec_lanes(x.reshape(-1)).reshape(x.shape)
+
+    def diagonal(self):
+        if 0 in self.offsets:
+            return self.bands[self.offsets.index(0)]
+        return torch.zeros(self.n, dtype=self.dtype, device=self.bands.device)
+
+    def to_dense(self):
+        out = torch.zeros((self.n, self.n), dtype=self.dtype,
+                          device=self.bands.device)
+        i = torch.arange(self.n, device=self.bands.device)
+        for j, d in enumerate(self.offsets):
+            ok = (i + d >= 0) & (i + d < self.n)
+            out[i[ok], i[ok] + d] = self.bands[j][i[ok]]
+        return out

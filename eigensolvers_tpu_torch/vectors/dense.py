@@ -6,8 +6,10 @@ and with the JAX package's ``JaxVector``:
 * subspace assembly (overlap / operator matrices) is formulated as (m, n)
   matrix products instead of m^2 host-looped dots
   (reference: numpyVector.py:180-203 loops vdots);
-* shifted solves run the torch MINRES of
-  :mod:`eigensolvers_tpu_torch.ops.linear_solvers` on the vector's device.
+* shifted solves run the solvers of
+  :mod:`eigensolvers_tpu_torch.ops.linear_solvers` on the vector's device
+  (MINRES, GMRES or exact), with a batched lane-stack path
+  (:meth:`TorchVector.solveBatch`) for block Lanczos.
 
 All products run at true fp32/fp64 (TF32 refused, see
 :func:`~eigensolvers_tpu_torch.ops.operators.require_true_fp32`): the
@@ -328,6 +330,36 @@ class TorchVector(AbstractVector):
         return solver, opts
 
     @classmethod
+    def _want_split(cls, op, b, sigma, opts):
+        """Whether the JAX package would take its split-complex path here:
+        a complex shift on a real operator and real RHS (not an exact
+        solve; ``linearSystemArgs["splitComplex"]`` overrides)."""
+        if not np.iscomplexobj(np.asarray(sigma)):
+            return False
+        if b.dtype.is_complex or op.dtype.is_complex:
+            return False
+        if opts.get("linearSolver") in ("exact", "pardiso"):
+            return False
+        forced = opts.get("splitComplex")
+        return True if forced is None else bool(forced)
+
+    @staticmethod
+    def _account(opts, report, solver, res, nlanes):
+        """Add a solve's counts to the ``linearSystemArgs["report"]`` dict
+        and to a caller's ``report``: "solves", "iterations" (summed over
+        lanes), and the operator applies — "matvecs" for single vectors,
+        "matmats" for lane stacks (batched MINRES)."""
+        its = int(np.sum(res.iterations))
+        applies = "matmats" if nlanes and solver == "minres" else "matvecs"
+        shared = opts.get("report")
+        if shared is not None:
+            for key, val in (("solves", max(nlanes, 1)), ("iterations", its),
+                             (applies, res.matvecs)):
+                shared[key] = shared.get(key, 0) + val
+        if report is not None:
+            report["iterations"] = report.get("iterations", 0) + its
+
+    @classmethod
     def solve(cls, H, b: "TorchVector", sigma, x0=None, opType: str = "her",
               reverseGF: bool = False) -> "TorchVector":
         """(sigma*I - H) x = b, inexactly (reference: numpyVector.py:147-178).
@@ -337,34 +369,33 @@ class TorchVector(AbstractVector):
         "solves", "iterations" and "matvecs" over all solves."""
         solver, opts = cls._solve_opts(b, sigma, opType)
         op = cls._as_operator(H, b)
-        if np.iscomplexobj(np.asarray(sigma)):
+        if cls._want_split(op, b, sigma, opts):
             raise NotImplementedError(
-                "complex-shifted solves (split-complex or GMRES) are not "
-                "ported yet (ROADMAP Queue A, 'FEAST')")
-        if solver == "gmres":
-            raise NotImplementedError(
-                "GMRES is not ported yet (ROADMAP Queue A, 'GMRES')")
-        if solver == "exact":
-            raise NotImplementedError(
-                "exact solves are not ported yet "
-                "(ROADMAP Queue A, 'Exact solves')")
-        if solver != "minres":
-            raise ValueError(
-                f"unknown linearSolver {solver!r}; available: minres, gmres "
-                f"(alias gcrotmk), exact (alias pardiso)")
+                "complex-shifted solves of a real operator take the "
+                "split-complex path, which is not ported yet (ROADMAP "
+                "Queue A, 'FEAST'); set linearSystemArgs['splitComplex'] "
+                "= False for complex GMRES")
         dtype = cls._solve_dtype(op, sigma, b.dtype)
         barr = b.array.reshape(-1).to(dtype)
         x0arr = None if x0 is None else x0.array.reshape(-1).to(dtype)
-        res = ls.minres(op, barr, sigma, x0=x0arr,
-                        rtol=opts["linear_tol"], atol=opts["linear_atol"],
-                        maxiter=opts["linearIter"], reverseGF=reverseGF,
-                        precond=opts.get("preconditioner"))
-
-        report = opts.get("report")
-        if report is not None:
-            for key, val in (("solves", 1), ("iterations", res.iterations),
-                             ("matvecs", res.matvecs)):
-                report[key] = report.get(key, 0) + val
+        if solver == "exact":
+            res = ls.solve_exact(op, barr, sigma, reverseGF=reverseGF)
+        elif solver == "minres":
+            res = ls.minres(op, barr, sigma, x0=x0arr,
+                            rtol=opts["linear_tol"], atol=opts["linear_atol"],
+                            maxiter=opts["linearIter"], reverseGF=reverseGF,
+                            precond=opts.get("preconditioner"))
+        elif solver == "gmres":
+            res = ls.gmres(op, barr, sigma, x0=x0arr,
+                           rtol=opts["linear_tol"], atol=opts["linear_atol"],
+                           restart=opts["gmresRestart"],
+                           maxiter=opts["linearIter"], reverseGF=reverseGF,
+                           precond=opts.get("preconditioner"))
+        else:
+            raise ValueError(
+                f"unknown linearSolver {solver!r}; available: minres, gmres "
+                f"(alias gcrotmk), exact (alias pardiso)")
+        cls._account(opts, None, solver, res, 0)
         # the convergence scalars are host values already: the solver's
         # one read per iteration brought them back
         if not res.converged:
@@ -380,7 +411,64 @@ class TorchVector(AbstractVector):
     def solveBatch(cls, H, bs, sigmas, x0s=None, opType: str = "her",
                    reverseGF: bool = False, rtol_scale: float = 1.0,
                    report=None):
-        raise NotImplementedError(
-            "batched shifted solves are not ported yet "
-            "(ROADMAP Queue A, 'minres_batch / solveBatch'); run block "
-            "Lanczos with batchBlockSolves=False meanwhile")
+        """Batched shifted solves of the (sigma_k, b_k) pairs, one lane
+        each, as ONE lane-stack computation (block Lanczos batching):
+        batched MINRES applies the operator once per iteration to all lanes.
+        ``linearSystemArgs["batchChunk"]`` bounds the number of simultaneous
+        lanes for memory; chunks run one after another.  A caller-passed
+        ``report`` dict accumulates "iterations" (summed over lanes), as
+        the ``linearSystemArgs["report"]`` dict does with "solves" and the
+        applies ("matmats" for batched MINRES, "matvecs" for GMRES lanes).
+        A lane that does not converge raises, or warns under
+        ``errorOnNonConvergence=False``."""
+        solver, opts = cls._solve_opts(bs[0], np.asarray(sigmas), opType)
+        chunk = opts.get("batchChunk")
+        if chunk and len(bs) > chunk:
+            out = []
+            for i in range(0, len(bs), chunk):
+                out.extend(cls.solveBatch(
+                    H, bs[i:i + chunk], sigmas[i:i + chunk],
+                    x0s=None if x0s is None else x0s[i:i + chunk],
+                    opType=opType, reverseGF=reverseGF,
+                    rtol_scale=rtol_scale, report=report))
+            return out
+        op = cls._as_operator(H, bs[0])
+        sig = np.asarray(sigmas)
+        dtype = cls._solve_dtype(op, sig, *[b.dtype for b in bs])
+        B = torch.stack([b.array.reshape(-1).to(dtype) for b in bs])
+        if x0s is None:
+            X0 = None
+        elif isinstance(x0s, (list, tuple)):
+            X0 = torch.stack([x.array.reshape(-1).to(dtype) for x in x0s])
+        else:                       # raw (nlanes, n) warm-start stack
+            X0 = as_tensor(x0s, B.device).to(dtype)
+
+        if solver == "exact":
+            outs = ls.solve_exact_batch(op, B, sig, reverseGF=reverseGF)
+            res = ls.SolveResult(torch.stack([o.x for o in outs]),
+                                 np.zeros(len(outs)), np.ones(len(outs), int),
+                                 np.ones(len(outs), bool), 0)
+        elif solver in ("minres", "gmres"):
+            fn = ls.minres_batch if solver == "minres" else ls.gmres_batch
+            kwargs = dict(rtol=opts["linear_tol"] * rtol_scale,
+                          atol=opts["linear_atol"] * rtol_scale,
+                          maxiter=opts["linearIter"], reverseGF=reverseGF,
+                          precond=opts.get("preconditioner"))
+            if solver == "gmres":
+                kwargs["restart"] = opts["gmresRestart"]
+            res = fn(op, B, sig, x0s=X0, **kwargs)
+        else:
+            raise ValueError(
+                f"unknown linearSolver {solver!r}; available: minres, gmres "
+                f"(alias gcrotmk), exact (alias pardiso)")
+        cls._account(opts, report, solver, res, len(bs))
+        for k, ok in enumerate(res.converged):
+            if not ok:
+                msg = (f"Batched solver {solver} lane {k} did not converge: "
+                       f"residual {float(res.resnorm[k]):.3e} after "
+                       f"{int(res.iterations[k])} iterations")
+                if opts.get("errorOnNonConvergence", True):
+                    raise RuntimeError(msg)
+                warnings.warn(msg)
+        return [cls(x.reshape(bs[k].array.shape), bs[k].options)
+                for k, x in enumerate(res.x)]

@@ -25,7 +25,8 @@ print(json.dumps({
     "jax_package": sorted(m for m in sys.modules
                           if m.split(".")[0] == "eigensolvers_tpu"),
     "modules": names,
-    "built": kernels.bsr_spmv_library.cache_info().currsize,
+    "built": kernels.bsr_spmv_library.cache_info().currsize
+             + kernels.bsr_spmm_library.cache_info().currsize,
     "triton": "triton" in sys.modules,
 }))
 """
@@ -38,7 +39,10 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing():
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got["jax_after_init"] == [] and got["jax_after_all"] == []
     assert got["jax_package"] == []
-    assert "eigensolvers_tpu_torch.ops.sparse" in got["modules"]
+    assert {"eigensolvers_tpu_torch.ops.sparse",
+            "eigensolvers_tpu_torch.ops.linear_solvers",
+            "eigensolvers_tpu_torch.solvers.step",
+            "eigensolvers_tpu_torch.solvers.fast_lanczos"} <= set(got["modules"])
     assert got["built"] == 0 and not got["triton"]
 
 

@@ -159,4 +159,4 @@ def test_smoke_problem_f32_through_lanczos_config(precision):
     assert abs(find_nearest(ev, sigma)[1] - levels[20]) <= tol * levels[20]
     assert Y[0].dtype == torch.float32
     assert report["matvecs"] > 0 and st["timers"]["solve"]["calls"] > 0
-    assert bsr.launches == {"bsr_spmv": 0, "bsr_spmv_split": 0}
+    assert set(bsr.launches.values()) == {0}

@@ -153,21 +153,57 @@ def test_solve_raises_on_non_convergence_like_jax():
 
 
 @pytest.mark.parametrize("solver,sigma,match", [
-    ("gmres", 40.0 + 0j, "FEAST"), ("minres", 40.0 + 1j, "FEAST"),
-    ("exact", 40.0, "Exact solves"), ("pardiso", 40.0, "Exact solves")])
+    ("gmres", 40.0 + 0j, "FEAST"), ("minres", 40.0 + 1j, "FEAST")])
 def test_unported_solvers_name_their_roadmap_item(solver, sigma, match):
+    """A complex shift on a real operator and RHS is the JAX package's
+    split-complex path, which comes with FEAST."""
     _, top = _ops()[1]
     b = TorchVector(np.ones(96), {"linearSystemArgs": {"linearSolver": solver}})
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
         TorchVector.solve(top, b, sigma)
 
 
-def test_gmres_on_hermitian_routes_to_minres_and_solve_batch_is_queued():
-    _, top = _ops()[1]
-    b = TorchVector(np.ones(96), {"linearSystemArgs": {"linearSolver": "gmres"}})
+@pytest.mark.parametrize("solver", ["exact", "pardiso"])
+@pytest.mark.parametrize("which", [0, 1], ids=["bsr", "dense"])
+def test_exact_solve_matches_jax(solver, which):
+    jop, top = _ops()[which]
+    opts = {"linearSystemArgs": {"linearSolver": solver}}
+    jb = JaxVector(np.random.RandomState(12).rand(96), opts)
+    for reverseGF in (False, True):
+        jx = JaxVector.solve(jop, jb, 0.9, reverseGF=reverseGF)
+        tx = TorchVector.solve(top, torch_vec(jb, opts), 0.9,
+                               reverseGF=reverseGF)
+        _close(as_np(tx.array), np.asarray(jx.array))
+
+
+def test_complex_shift_solves_with_gmres_when_split_is_off():
+    """splitComplex=False (or complex data) takes complex GMRES in both
+    packages."""
+    jop, top = _ops()[1]
+    opts = {"linearSystemArgs": {"linearSolver": "gmres", "linear_tol": 1e-10,
+                                 "linear_atol": 1e-10, "linearIter": 4000,
+                                 "splitComplex": False}}
+    jb = JaxVector(np.random.RandomState(13).rand(96), opts)
+    jx = JaxVector.solve(jop, jb, 40.0 + 2.0j)
+    tx = TorchVector.solve(top, torch_vec(jb, opts), 40.0 + 2.0j)
+    assert tx.dtype == torch.complex128
+    np.testing.assert_allclose(as_np(tx.array), np.asarray(jx.array),
+                               atol=1e-9)
+
+
+def test_gmres_on_hermitian_routes_to_minres_and_solve_batch_matches_jax():
+    jop, top = _ops()[1]
+    opts = {"linearSystemArgs": {"linearSolver": "gmres", "linear_tol": 1e-10,
+                                 "linear_atol": 1e-10, "linearIter": 4000}}
+    b = TorchVector(np.ones(96), opts)
     assert TorchVector.solve(top, b, 40.0).norm() > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.*solveBatch"):
-        TorchVector.solveBatch(top, [b], [40.0])
+    jbs = [JaxVector(np.random.RandomState(s).rand(96), opts) for s in (1, 2)]
+    jx = JaxVector.solveBatch(jop, jbs, [40.0, 20.0])
+    tx = TorchVector.solveBatch(top, [torch_vec(v, opts) for v in jbs],
+                                [40.0, 20.0])
+    for j, t in zip(jx, tx):
+        np.testing.assert_allclose(as_np(t.array), np.asarray(j.array),
+                                   atol=1e-9)
 
 
 def test_f32_vectors_stay_f32():
