@@ -13,9 +13,15 @@ Phases (any failure raises and the script exits non-zero):
 3. kernels vs plain PyTorch on the card, at the slice shape and at ragged
    small shapes, with errors and CUDA-event timings: the single-vector SpMV
    (B1 ``bsr_spmv``, B2 ``bsr_spmv_split``) and the multi-vector product
-   (B3 ``bsr_spmm``, ``bsr_spmm_split``) for m = 1, 2, 4, 8 vectors and
-   across the kernel's chunk of 8; the bf16x3 kernels against the exact
-   split product, with a signature that tells them from a true-f32 product;
+   (B3 ``bsr_spmm``, ``bsr_spmm_split``) for m = 1, 2, 4, 8, 16, 32 vectors
+   and across the kernels' lane chunks (8 for ``bsr_spmm``, 32 for the
+   tensor-core ``bsr_spmm_split``, which B2 launches with m = 1); the bf16x3
+   kernels against the exact split product, with a signature that tells
+   them from a true-f32 product.  Beside each time: its bound (the larger
+   of the bytes over the HBM rate and the flops over the peak rate of their
+   type) and, for the f32/f64 products, the time of the one PyTorch call
+   that computes the same function (a ``torch.sparse_bsr_tensor`` product,
+   a yardstick the port never calls; the profiler names its kernel);
 4. the slice through the public entry points, on a block-sparse 2-mode
    vibrational Hamiltonian with n = 262,144 and 1.21 GB of f32 block data
    on the card, each run checked against the exact spectrum and by an f64
@@ -53,7 +59,14 @@ LINEAR = dict(linearSolver="minres", linearIter=20000, linear_tol=1e-2,
               linear_atol=1e-2, preconditioner="jacobi",
               errorOnNonConvergence=False)
 NBLOCK = 2
-LANES = (1, 2, 4, 8)                           # B3 at the slice shape
+LANES = (1, 2, 4, 8, 16, 32)                   # B3 at the slice shape
+# The card's rates for the bound (NVIDIA's H100 SXM data sheet, dense, at
+# the 700 W limit): HBM bytes/s and peak flop/s by type; f32 and f64 on
+# the CUDA cores, bf16 on the tensor cores.
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12, "bf16": 989e12}
+NO_LIBRARY = ("none: no single PyTorch call computes the bf16x3 product "
+              "(x split per element, three bf16 products, xl*lo dropped)")
 # the dense headline task of bench.py (bench_lanczos_headline)
 HEADLINE = dict(n=2048, target_index=1316, L=30, maxit=10, eConv=1e-6)
 HEADLINE_LINEAR = dict(linearSolver="minres", linearIter=8000,
@@ -124,9 +137,35 @@ def time_ms(torch, fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
-def compare(torch, name, kern, plain, ref, tol, gb):
+def bound(block_bytes, idx_bytes, m, npad, itemsize, flops, peak):
+    """The least time of one product, in ms, and what sets it: each input
+    byte read once and each output byte written once over the HBM rate,
+    against the flops over the peak rate of their type."""
+    t_bytes = (block_bytes + idx_bytes + 2 * m * npad * itemsize) / HBM_BPS
+    t_ops = flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_names(torch, fn):
+    """The CUDA kernels one call of ``fn`` runs, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sorted({e.key for e in prof.key_averages()
+                       if getattr(e, "device_time_total",
+                                  getattr(e, "cuda_time_total", 0)) > 0})
+    except Exception as e:                       # the profiler is a reading
+        return [f"not measured ({type(e).__name__}: {e})"]
+
+
+def compare(torch, name, kern, plain, ref, tol, gb, bound_ms, bound_by,
+            library=None):
     """Hold a kernel against its plain version (or ``ref``) and time both in
-    turns (plain, kernel, kernel, plain); returns the result dict."""
+    turns (plain, kernel, kernel, plain), then the library call, if any,
+    twice; returns the result dict."""
     yk = kern()
     torch.cuda.synchronize()
     yp = plain() if ref is None else ref
@@ -141,11 +180,19 @@ def compare(torch, name, kern, plain, ref, tol, gb):
     ms_k2 = time_ms(torch, kern)
     ms_p2 = time_ms(torch, plain)
     ms_k, ms_p = min(ms_k1, ms_k2), min(ms_p1, ms_p2)
+    lib_ms, lib_note = None, NO_LIBRARY
+    if library is not None:
+        lib_ms, lib_note = library()
+    lib = f"{lib_ms:.4f} ms" if lib_ms is not None else lib_note
     print(f"[kernel] {name}: rel err {err:.3e} (tol {tol:.0e}); kernel "
           f"{ms_k:.4f} ms ({gb / ms_k * 1e3:.0f} GB/s of block data), plain "
-          f"{ms_p:.4f} ms; medians of 30 (kernel {ms_k1:.4f}/{ms_k2:.4f}, "
-          f"plain {ms_p1:.4f}/{ms_p2:.4f})", flush=True)
-    return dict(max_rel_err=err, max_abs_err=abs_err, ms=ms_k, plain_ms=ms_p)
+          f"{ms_p:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{bound_ms / ms_k:.0%} of it), library {lib}; medians of 30 "
+          f"(kernel {ms_k1:.4f}/{ms_k2:.4f}, plain {ms_p1:.4f}/{ms_p2:.4f})",
+          flush=True)
+    return dict(max_rel_err=err, max_abs_err=abs_err, ms=ms_k, plain_ms=ms_p,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                library=lib_note)
 
 
 def main():
@@ -183,13 +230,13 @@ def main():
 
     # -- 2. build: one nvcc per source, all started together -----------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(f) for f in (kernels.bsr_spmv_library,
-                                           kernels.bsr_spmm_library)]
+    with ThreadPoolExecutor(len(kernels.LIBRARIES)) as pool:
+        builds = [pool.submit(f) for f in kernels.LIBRARIES]
         for b in builds:
             b.result()
-    print(f"[build] bsr_spmv.cu and bsr_spmm.cu with {kernels.nvcc_path()}: "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] {', '.join(sorted(p.name for p in kernels.CSRC.glob('*.cu')))}"
+          f" with {kernels.nvcc_path()}: {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
     # -- 3. kernels vs plain ------------------------------------------------
     t0 = time.perf_counter()
@@ -240,44 +287,93 @@ def main():
                 and e32 > KERNEL_TOL["split"], f"{name}: the checks cannot "
                 f"tell an f32 product from the split ({t32}, {e32:.3e})")
 
+    # Bounds: the stored blocks (hi + lo for the split form: the f32
+    # bytes), idx, each x lane read once and each y lane written once;
+    # 2 flops per stored element and lane (6 for the three bf16 products).
+    npad = op32.n_padded
+    elems = op32.dataT.numel()
+
+    def bound_of(kind, m):
+        size = 8 if kind == "f64" else 4
+        return bound(elems * size, idx.numel() * 4, m, npad, size,
+                     (6 if kind == "split" else 2) * elems * m,
+                     PEAK_FLOPS["bf16" if kind == "split" else kind])
+
+    # The library yardstick: the stored blocks (ELL padding included, the
+    # same bytes the kernels read) as a torch.sparse_bsr_tensor, built once.
+    def bsr_tensor(dataT):
+        crow = torch.arange(0, nrb * nbpr + 1, nbpr, dtype=torch.int32,
+                            device=dev)
+        vals = dataT.transpose(-1, -2).reshape(nrb * nbpr, B, B).contiguous()
+        return torch.sparse_bsr_tensor(crow, idx.reshape(-1), vals,
+                                       size=(npad, npad),
+                                       check_invariants=False)
+
+    A32, A64 = bsr_tensor(op32.dataT), bsr_tensor(op64.dataT)
+
+    def library(A, x, ref, tol):
+        """Time ``A @ x`` (x (npad,) or (npad, m)) after holding it to
+        ``ref()``; returns (ms or None, what was called or why not)."""
+        try:
+            y = A @ x
+            torch.cuda.synchronize()
+        except Exception as e:
+            return None, (f"refused: {type(e).__name__}: "
+                          f"{str(e).splitlines()[0][:200]}")
+        err = relerr(y.T if y.ndim == 2 else y, ref())
+        if not err <= tol:
+            return None, f"disagrees with the plain product: {err:.2e}"
+        ms = min(time_ms(torch, lambda: A @ x), time_ms(torch, lambda: A @ x))
+        return ms, (f"A @ x, A a torch.sparse_bsr_tensor (rel err {err:.1e});"
+                    f" kernels: {'; '.join(kernel_names(torch, lambda: A @ x))}")
+
     results = {}
-    for name, kern, plain, ref, tol, gb in (
+    for name, kern, plain, ref, tol, gb, kind, lib in (
             ("bsr_spmv f32", lambda: bsr.bsr_matvec(op32.dataT, idx, x32),
              lambda: bsr.bsr_matvec_plain(op32.dataT, idx, x32), None,
-             KERNEL_TOL["f32"], gb32),
+             KERNEL_TOL["f32"], gb32, "f32",
+             lambda: library(A32, x32, lambda: ref32, KERNEL_TOL["f32"])),
             ("bsr_spmv f64", lambda: bsr.bsr_matvec(op64.dataT, idx, x64),
              lambda: bsr.bsr_matvec_plain(op64.dataT, idx, x64), None,
-             KERNEL_TOL["f64"], 2 * gb32),
+             KERNEL_TOL["f64"], 2 * gb32, "f64",
+             lambda: library(A64, x64, lambda: bsr.bsr_matvec_plain(
+                 op64.dataT, idx, x64), KERNEL_TOL["f64"])),
             ("bsr_spmv_split", lambda: bsr.bsr_matvec_split(hi, lo, idx, x32),
              lambda: bsr.bsr_matvec_split_plain(hi, lo, idx, x32),
-             exactX[0], split_tol(nbpr, B), gb32)):
+             exactX[0], split_tol(nbpr, B), gb32, "split", None)):
         results[name] = compare(torch, f"{name} at {shape}", kern, plain,
-                                ref, tol, gb)
+                                ref, tol, gb, *bound_of(kind, 1), lib)
     split_checks("bsr_spmv_split", bsr.bsr_matvec_split(hi, lo, idx, x32),
                  exactX[0], bsr.bsr_matvec(op32.dataT, idx, x32), ref32,
                  "split_f64")
     for m in LANES:
         Xm32, Xm64 = X32[:m].contiguous(), X64[:m].contiguous()
-        for name, kern, plain, ref, tol, gb in (
+        Xt32, Xt64 = Xm32.T.contiguous(), Xm64.T.contiguous()
+        for name, kern, plain, ref, tol, gb, kind, lib in (
                 ("bsr_spmm f32",
                  lambda: bsr.bsr_matmat(op32.dataT, idx, Xm32),
                  lambda: bsr.bsr_matmat_plain(op32.dataT, idx, Xm32), None,
-                 KERNEL_TOL["f32"], gb32),
+                 KERNEL_TOL["f32"], gb32, "f32",
+                 lambda: library(A32, Xt32, lambda: refX[:m],
+                                 KERNEL_TOL["f32"])),
                 ("bsr_spmm f64",
                  lambda: bsr.bsr_matmat(op64.dataT, idx, Xm64),
                  lambda: bsr.bsr_matmat_plain(op64.dataT, idx, Xm64), None,
-                 KERNEL_TOL["f64"], 2 * gb32),
+                 KERNEL_TOL["f64"], 2 * gb32, "f64",
+                 lambda: library(A64, Xt64, lambda: bsr.bsr_matmat_plain(
+                     op64.dataT, idx, Xm64), KERNEL_TOL["f64"])),
                 ("bsr_spmm_split",
                  lambda: bsr.bsr_matmat_split(hi, lo, idx, Xm32),
                  lambda: bsr.bsr_matmat_split_plain(hi, lo, idx, Xm32),
-                 exactX[:m], split_tol(nbpr, B), gb32)):
+                 exactX[:m], split_tol(nbpr, B), gb32, "split", None)):
             results[(name, m)] = compare(torch, f"{name} m={m} at {shape}",
-                                         kern, plain, ref, tol, gb)
+                                         kern, plain, ref, tol, gb,
+                                         *bound_of(kind, m), lib)
         split_checks(f"bsr_spmm_split m={m}",
                      bsr.bsr_matmat_split(hi, lo, idx, Xm32), exactX[:m],
                      bsr.bsr_matmat(op32.dataT, idx, Xm32), refX[:m],
                      "split_lanes")
-    del ref32, refX, exactX, X64, X32, x64, x32
+    del ref32, refX, exactX, X64, X32, x64, x32, A32, A64
 
     # ragged small shapes, up to the largest block the kernels take
     for nr, nb, Bs in ((5, 3, 32), (5, 3, 64), (5, 3, 100), (2, 2, 1024)):
@@ -286,7 +382,7 @@ def main():
                               device=dev)
         i5 = torch.as_tensor(r.randint(0, nr, (nr, nb)), dtype=torch.int32,
                              device=dev)
-        V64 = torch.as_tensor(r.standard_normal((17, nr * Bs)), device=dev)
+        V64 = torch.as_tensor(r.standard_normal((33, nr * Bs)), device=dev)
         d32, V32 = d64.float(), V64.float()
         v64, v32 = V64[0].contiguous(), V32[0].contiguous()
         h5 = d32.to(torch.bfloat16)
@@ -306,7 +402,7 @@ def main():
         # (key, result, lanes, the signature it must have)
         sigs = [("B2", y2, 1, 0.0), ("f32", bsr.bsr_matvec(d32, i5, v32), 1,
                                      1.0)]
-        for m in (1, 3, 9, 17):            # across the kernel's chunk of 8
+        for m in (1, 3, 9, 17, 33):   # across the chunks of 8 and of 32
             W64, W32 = V64[:m].contiguous(), V32[:m].contiguous()
             Ys = bsr.bsr_matmat_split(h5, l5, i5, W32)
             cases += [
@@ -331,6 +427,15 @@ def main():
             ts.append(f"{key} {t:+.3f}")
         print(f"[kernel] ragged nrb={nr} nbpr={nb} B={Bs}: rel err "
               + ", ".join(errs) + "; signature " + ", ".join(ts), flush=True)
+
+    # every row at the slice shape, for PERF.md's kernel table
+    for key, r in results.items():
+        name, m = key if isinstance(key, tuple) else (key, 1)
+        print(f"[row] {name} m={m}: kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, library "
+              + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+                 else "none") + f" [{r['library']}]", flush=True)
 
     # -- 4. the slice -------------------------------------------------------
     levels = product.kron_sum_levels(e_out, e_in, TARGET_LEVEL + 12)
@@ -544,16 +649,18 @@ def main():
         return dict(name=name, route="cuda", source=src + source,
                     replaces=replaces, launches=totals[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"])
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    library=r["library"])
 
     line = {"kernels": [
         entry("bsr_spmv", "bsr_spmv.cu",
               "eigensolvers_tpu/ops/sparse.py:440", "bsr_spmv f32"),
-        entry("bsr_spmv_split", "bsr_spmv.cu",
+        entry("bsr_spmv_split", "bsr_spmm_split.cu",
               "eigensolvers_tpu/ops/sparse.py:479", "bsr_spmv_split"),
         # B3 at the main path's lane count (the block of two)
         entry("bsr_spmm", "bsr_spmm.cu", b3, ("bsr_spmm f32", NBLOCK)),
-        entry("bsr_spmm_split", "bsr_spmm.cu", b3,
+        entry("bsr_spmm_split", "bsr_spmm_split.cu", b3,
               ("bsr_spmm_split", NBLOCK)),
     ]}
     print(json.dumps(line))

@@ -11,11 +11,8 @@
 //
 // bsr_spmm_{f32,f64}  replace eigensolvers_tpu/ops/sparse.py::_bsr_matmat_xla
 //   (XLA gather + einsum, :294; every vmapped BSR matvec reaches it through
-//   the custom_vmap rules at :488-537).
-// bsr_spmm_split_f32  is its "high" (bf16x3) form: the f32 blocks arrive
-//   pre-split into bf16 hi and lo halves, each x element is split the same
-//   way, and Y += xh*Bh + xh*Bl + xl*Bh in f32 (xl*Bl dropped), as
-//   bsr_spmv_split does for one vector.
+//   the custom_vmap rules at :488-537).  Its "high" (bf16x3) form is
+//   bsr_spmm_split.cu, on the tensor cores.
 //
 // What bounds them: at m <= 8 each dataT element carries 2m flops per
 // itemsize bytes, far below the card's flop/byte balance, so an apply costs
@@ -32,7 +29,6 @@
 // working type: no TF32 and no tensor cores.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 
 namespace {
 
@@ -82,61 +78,9 @@ __global__ void bsr_spmm_kernel(const T* __restrict__ dataT,
     }
 }
 
-template <int MR>
-__global__ void bsr_spmm_split_kernel(const __nv_bfloat16* __restrict__ hiT,
-                                      const __nv_bfloat16* __restrict__ loT,
-                                      const int* __restrict__ idx,
-                                      const float* __restrict__ X,
-                                      float* __restrict__ Y, int nbpr, int B,
-                                      int m, long long npad) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    float* xh_s = reinterpret_cast<float*>(smem);   // (B, MR)
-    float* xl_s = xh_s + B * MR;                    // (B, MR)
-    const int r = blockIdx.x;
-    const int k0 = blockIdx.y * MR;
-    const int i = threadIdx.x;
-    float acc[MR];
-#pragma unroll
-    for (int q = 0; q < MR; ++q) acc[q] = 0.0f;
-    for (int t = 0; t < nbpr; ++t) {
-        const long long c = idx[(long long)r * nbpr + t];
-        __syncthreads();
-#pragma unroll
-        for (int q = 0; q < MR; ++q) {
-            const int k = k0 + q;
-            const float xv = k < m ? X[k * npad + c * B + i] : 0.0f;
-            const float xh = __bfloat162float(__float2bfloat16(xv));
-            xh_s[i * MR + q] = xh;
-            xl_s[i * MR + q] = __bfloat162float(__float2bfloat16(xv - xh));
-        }
-        __syncthreads();
-        const long long off = ((long long)r * nbpr + t) * B * B + i;
-        const __nv_bfloat16* bh = hiT + off;
-        const __nv_bfloat16* bl = loT + off;
-#pragma unroll 4
-        for (int j = 0; j < B; ++j) {
-            const float h = __bfloat162float(bh[(long long)j * B]);
-            const float l = __bfloat162float(bl[(long long)j * B]);
-            const float* xhj = xh_s + j * MR;
-            const float* xlj = xl_s + j * MR;
-#pragma unroll
-            for (int q = 0; q < MR; ++q) {
-                acc[q] = fmaf(xhj[q], h, acc[q]);
-                acc[q] = fmaf(xhj[q], l, acc[q]);
-                acc[q] = fmaf(xlj[q], h, acc[q]);
-            }
-        }
-    }
-#pragma unroll
-    for (int q = 0; q < MR; ++q) {
-        const int k = k0 + q;
-        if (k < m) Y[k * npad + (long long)r * B + i] = acc[q];
-    }
-}
-
 // Launch one kernel instance with `bytes` of dynamic shared memory; above
-// the default 48 KB (f64 or split with MR = 8 and B = 1024 needs 64 KB) the
-// kernel must first be allowed to take it.
+// the default 48 KB (f64 with MR = 8 and B = 1024 needs 64 KB) the kernel
+// must first be allowed to take it.
 template <typename Kernel, typename... Args>
 int launch_with_smem(Kernel kernel, dim3 grid, int threads, size_t bytes,
                      void* stream, Args... args) {
@@ -173,19 +117,6 @@ int launch(const void* dataT, const void* idx, const void* X, void* Y,
     }
 }
 
-template <int MR>
-int launch_split_mr(const void* hiT, const void* loT, const void* idx,
-                    const void* X, void* Y, int nrb, int nbpr, int B, int m,
-                    void* stream) {
-    const dim3 grid(nrb, (m + MR - 1) / MR);
-    return launch_with_smem(bsr_spmm_split_kernel<MR>, grid, B,
-                            (size_t)2 * MR * B * sizeof(float), stream,
-                            (const __nv_bfloat16*)hiT,
-                            (const __nv_bfloat16*)loT, (const int*)idx,
-                            (const float*)X, (float*)Y, nbpr, B, m,
-                            (long long)nrb * B);
-}
-
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  Each launches ONE kernel on the
@@ -203,17 +134,6 @@ int bsr_spmm_f32(const void* dataT, const void* idx, const void* X, void* Y,
 int bsr_spmm_f64(const void* dataT, const void* idx, const void* X, void* Y,
                  int nrb, int nbpr, int B, int m, void* stream) {
     return launch<double>(dataT, idx, X, Y, nrb, nbpr, B, m, stream);
-}
-
-int bsr_spmm_split_f32(const void* hiT, const void* loT, const void* idx,
-                       const void* X, void* Y, int nrb, int nbpr, int B,
-                       int m, void* stream) {
-    switch (pick_mr(m)) {
-        case 1: return launch_split_mr<1>(hiT, loT, idx, X, Y, nrb, nbpr, B, m, stream);
-        case 2: return launch_split_mr<2>(hiT, loT, idx, X, Y, nrb, nbpr, B, m, stream);
-        case 4: return launch_split_mr<4>(hiT, loT, idx, X, Y, nrb, nbpr, B, m, stream);
-        default: return launch_split_mr<8>(hiT, loT, idx, X, Y, nrb, nbpr, B, m, stream);
-    }
 }
 
 const char* bsr_spmm_error_string(int code) {

@@ -10,8 +10,8 @@
 //
 // bsr_spmv_{f32,f64}  replace eigensolvers_tpu/ops/sparse.py::
 //   _bsr_matvec_pallas ("highest" precision; Pallas launch at sparse.py:440).
-// bsr_spmv_split_f32  replaces eigensolvers_tpu/ops/sparse.py::
-//   _bsr_matvec_pallas_split ("high" precision, bf16x3; launch at :479).
+// The "high" (bf16x3) form, _bsr_matvec_pallas_split (launch at :479), is
+// bsr_spmm_split.cu launched with one vector.
 //
 // What bounds them: each matvec streams every stored block once, so the
 // cost is the HBM bytes of dataT (nrb*nbpr*B*B*itemsize), read exactly once;
@@ -28,7 +28,6 @@
 // FMA chains in the working type: no TF32 and no tensor cores.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 
 namespace {
 
@@ -63,44 +62,6 @@ __global__ void bsr_spmv_kernel(const T* __restrict__ dataT,
     y[(long long)r * B + i] = acc;
 }
 
-// "high" precision: the f32 blocks arrive pre-split into bf16 hi and lo
-// halves (hi = bf16(a), lo = bf16(a - hi)); x is split the same way here.
-// y += xh*Bh + xh*Bl + xl*Bh in f32 (the xl*Bl term is dropped, as in the
-// TPU kernel).  Each bf16*bf16 product is exact in f32.
-__global__ void bsr_spmv_split_kernel(const __nv_bfloat16* __restrict__ hiT,
-                                      const __nv_bfloat16* __restrict__ loT,
-                                      const int* __restrict__ idx,
-                                      const float* __restrict__ x,
-                                      float* __restrict__ y, int nbpr, int B) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    float* xh_s = reinterpret_cast<float*>(smem);
-    float* xl_s = xh_s + B;
-    const int r = blockIdx.x;
-    const int i = threadIdx.x;
-    float acc = 0.0f;
-    for (int t = 0; t < nbpr; ++t) {
-        const long long c = idx[(long long)r * nbpr + t];
-        __syncthreads();
-        const float xv = x[c * B + i];
-        const float xh = __bfloat162float(__float2bfloat16(xv));
-        xh_s[i] = xh;
-        xl_s[i] = __bfloat162float(__float2bfloat16(xv - xh));
-        __syncthreads();
-        const long long off = ((long long)r * nbpr + t) * B * B + i;
-        const __nv_bfloat16* bh = hiT + off;
-        const __nv_bfloat16* bl = loT + off;
-#pragma unroll 8
-        for (int j = 0; j < B; ++j) {
-            const float h = __bfloat162float(bh[(long long)j * B]);
-            const float l = __bfloat162float(bl[(long long)j * B]);
-            acc = fmaf(xh_s[j], h, acc);
-            acc = fmaf(xh_s[j], l, acc);
-            acc = fmaf(xl_s[j], h, acc);
-        }
-    }
-    y[(long long)r * B + i] = acc;
-}
-
 template <typename T>
 int launch(const void* dataT, const void* idx, const void* x, void* y,
            int nrb, int nbpr, int B, void* stream) {
@@ -125,16 +86,6 @@ int bsr_spmv_f32(const void* dataT, const void* idx, const void* x, void* y,
 int bsr_spmv_f64(const void* dataT, const void* idx, const void* x, void* y,
                  int nrb, int nbpr, int B, void* stream) {
     return launch<double>(dataT, idx, x, y, nrb, nbpr, B, stream);
-}
-
-int bsr_spmv_split_f32(const void* hiT, const void* loT, const void* idx,
-                       const void* x, void* y, int nrb, int nbpr, int B,
-                       void* stream) {
-    bsr_spmv_split_kernel<<<nrb, B, 2 * B * sizeof(float),
-                            (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)hiT, (const __nv_bfloat16*)loT,
-        (const int*)idx, (const float*)x, (float*)y, nbpr, B);
-    return (int)cudaGetLastError();
 }
 
 const char* bsr_spmv_error_string(int code) {

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.operators import default_device
 from ..ops.sparse import BSROperator
 from .bases import Hermite, SincInfInf
 
@@ -38,11 +39,13 @@ def sinc_dvr_oscillator(N: int, omega: float, x_range) -> np.ndarray:
 
 
 def kron_sum_bsr(H_out: np.ndarray, h_in: np.ndarray, bandwidth: int,
-                 dtype=torch.float64, device="cpu",
+                 dtype=torch.float64, device=None,
                  precision="highest") -> BSROperator:
     """The block-ELL operator of ``H_out ⊗ I + I ⊗ h_in``, assembled on
-    ``device`` (block data never passes through the host).  Terms outside
-    the outer matrix (near its edges) are zero blocks."""
+    ``device`` (default: the card; block data never passes through the
+    host).  Terms outside the outer matrix (near its edges) are zero
+    blocks."""
+    device = default_device(device)
     M = H_out.shape[0]
     B = h_in.shape[0]
     w = int(bandwidth)

@@ -80,22 +80,34 @@ def _load(name: str, signatures: dict) -> ctypes.CDLL:
     return lib
 
 
+_ONE = [_P, _P, _P, _P, _I, _I, _I, _P]        # blocks, idx, x, y, nrb..B
+_MANY = [_P, _P, _P, _P, _I, _I, _I, _I, _P]    # ..., m, stream
+
+
 @functools.cache
 def bsr_spmv_library() -> ctypes.CDLL:
-    """The single-vector block-ELL SpMV kernels (``csrc/bsr_spmv.cu``, B1
-    and B2), built on first call."""
-    one = [_P, _P, _P, _P, _I, _I, _I, _P]
-    return _load("bsr_spmv", {"bsr_spmv_f32": one, "bsr_spmv_f64": one,
-                              "bsr_spmv_split_f32": [_P, *one]})
+    """The single-vector block-ELL SpMV kernels (``csrc/bsr_spmv.cu``, B1),
+    built on first call."""
+    return _load("bsr_spmv", {"bsr_spmv_f32": _ONE, "bsr_spmv_f64": _ONE})
 
 
 @functools.cache
 def bsr_spmm_library() -> ctypes.CDLL:
-    """The multi-vector block-ELL kernels (``csrc/bsr_spmm.cu``, B3), built
-    on first call."""
-    many = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
-    return _load("bsr_spmm", {"bsr_spmm_f32": many, "bsr_spmm_f64": many,
-                              "bsr_spmm_split_f32": [_P, *many]})
+    """The multi-vector block-ELL kernels (``csrc/bsr_spmm.cu``, B3 in f32
+    and f64), built on first call."""
+    return _load("bsr_spmm", {"bsr_spmm_f32": _MANY, "bsr_spmm_f64": _MANY})
+
+
+@functools.cache
+def bsr_spmm_split_library() -> ctypes.CDLL:
+    """The bf16x3 block-ELL product on the tensor cores
+    (``csrc/bsr_spmm_split.cu``: B3 at "high", and B2 with one vector),
+    built on first call."""
+    return _load("bsr_spmm_split", {"bsr_spmm_split_f32": [_P, *_MANY]})
+
+
+#: Every kernel library, for building them all at once.
+LIBRARIES = (bsr_spmv_library, bsr_spmm_library, bsr_spmm_split_library)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

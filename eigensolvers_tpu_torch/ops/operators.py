@@ -56,17 +56,28 @@ def require_true_fp32(t: torch.Tensor) -> None:
             "would run in TF32; set it to False for true fp32")
 
 
+def default_device(device=None) -> torch.device:
+    """``device`` if given, else the card: the entry points run on CUDA
+    unless the caller asks for the CPU.  Without a CUDA device and without
+    ``device`` this raises instead of falling back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device=\"cpu\" (or a CPU tensor) to run on the CPU")
+    return torch.device("cuda")
+
+
 def as_tensor(a, device=None, dtype=None) -> torch.Tensor:
-    """numpy array / sequence / tensor -> tensor on ``device`` (a tensor
-    keeps its own device when ``device`` is None, anything else goes to
-    the CPU)."""
+    """numpy array / sequence / tensor -> tensor on ``device``.  A tensor
+    keeps its own device when ``device`` is None; anything else goes to
+    :func:`default_device`, the card."""
     if isinstance(a, torch.Tensor):
         return a.to(device=device if device is not None else a.device,
                     dtype=dtype)
     arr = np.require(a, requirements=["C", "W"])     # copies only if needed
-    return torch.as_tensor(arr,
-                           device=device if device is not None else "cpu",
-                           dtype=dtype)
+    return torch.as_tensor(arr, device=default_device(device), dtype=dtype)
 
 
 class AbstractOperator(torch.nn.Module):
@@ -252,7 +263,8 @@ def as_operator(H, device=None) -> AbstractOperator:
     ``.matvec`` and ``.shape`` such as a scipy ``LinearOperator``
     (→ CallableOperator; their matvec takes and returns numpy arrays, so
     each apply passes through the host).  ``device`` places a new operator
-    (default: the tensor's device, else the CPU)."""
+    (default: the tensor's device, else the card; see
+    :func:`default_device`)."""
     if isinstance(H, AbstractOperator):
         return H
     if isinstance(H, (np.ndarray, torch.Tensor)) and H.ndim == 2:

@@ -13,13 +13,16 @@ Execution paths, chosen by the device of the tensors alone:
 * single vector (:meth:`BSROperator.matvec`) on a CUDA tensor: the
   ``bsr_spmv`` kernel (``csrc/bsr_spmv.cu``, B1), the port of the JAX
   package's Pallas kernel ``_bsr_matvec_pallas``, at "highest" or
-  "default" for f32 or f64; at ``precision="high"`` on f32 data the bf16x3
-  ``bsr_spmv_split`` kernel (B2, port of ``_bsr_matvec_pallas_split``);
+  "default" for f32 or f64; at ``precision="high"`` on f32 data B2, the
+  port of ``_bsr_matvec_pallas_split``: the bf16x3 tensor-core kernel
+  ``csrc/bsr_spmm_split.cu`` launched with one vector (counted as
+  ``bsr_spmv_split``);
 * a lane stack of m vectors (:meth:`BSROperator.matvec_lanes`, under
   ``matmat`` and every batched solve) on a CUDA tensor: the ``bsr_spmm``
   kernel (``csrc/bsr_spmm.cu``, B3), which replaces the JAX package's XLA
   ``_bsr_matmat_xla``; at "high" on f32 data its bf16x3 form
-  ``bsr_spmm_split``, so a lane sees the same operator as a single vector;
+  ``bsr_spmm_split`` (``csrc/bsr_spmm_split.cu``), so a lane sees the
+  same operator as a single vector;
 * CPU tensor: the plain PyTorch versions (gather + einsum), which are also
   the references the kernels are tested against.
 
@@ -36,7 +39,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernels import bsr_spmm_library, bsr_spmv_library, check
+from .kernels import (bsr_spmm_library, bsr_spmm_split_library,
+                      bsr_spmv_library, check)
 from .operators import AbstractOperator, as_tensor, resolve_precision
 
 #: Kernel launches since the last :func:`reset_launch_counts`, by kernel.
@@ -332,28 +336,36 @@ def bsr_matvec(dataT, idx, xp):
     return y
 
 
+def _launch_split(name, hiT, loT, idx, Xp, lanes):
+    """Launch the bf16x3 tensor-core kernel on the padded x (nrb*B,) or
+    lane stack (m, nrb*B) and count the launch under ``name``."""
+    nrb, nbpr, B = _check_launch((hiT, loT), idx, Xp, lanes=lanes)
+    if hiT.dtype != torch.bfloat16 or loT.dtype != torch.bfloat16 \
+            or Xp.dtype != torch.float32:
+        raise TypeError(f"{name} takes bf16 hi/lo blocks and f32 x, got "
+                        f"{hiT.dtype}, {loT.dtype}, {Xp.dtype}")
+    lib = bsr_spmm_split_library()
+    Y = torch.empty_like(Xp)
+    with torch.cuda.device(Xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.bsr_spmm_split_f32(hiT.data_ptr(), loT.data_ptr(),
+                                      idx.data_ptr(), Xp.data_ptr(),
+                                      Y.data_ptr(), nrb, nbpr, B,
+                                      Xp.shape[0] if lanes else 1, stream)
+    check(lib, code, name)
+    launches[name] += 1
+    return Y
+
+
 def bsr_matvec_split(hiT, loT, idx, xp):
     """B2: the "high" precision (bf16x3) f32 SpMV from pre-split bf16 blocks
-    (port of ``eigensolvers_tpu/ops/sparse.py::_bsr_matvec_pallas_split``)."""
+    (port of ``eigensolvers_tpu/ops/sparse.py::_bsr_matvec_pallas_split``):
+    the tensor-core kernel of :func:`bsr_matmat_split` with one vector."""
     if xp.device.type == "cpu":
         return bsr_matvec_split_plain(hiT, loT, idx, xp)
     if xp.device.type != "cuda":
         raise ValueError(f"no bsr_spmv_split kernel for device {xp.device}")
-    nrb, nbpr, B = _check_launch((hiT, loT), idx, xp)
-    if hiT.dtype != torch.bfloat16 or loT.dtype != torch.bfloat16 \
-            or xp.dtype != torch.float32:
-        raise TypeError(f"bsr_spmv_split takes bf16 hi/lo blocks and f32 x, "
-                        f"got {hiT.dtype}, {loT.dtype}, {xp.dtype}")
-    lib = bsr_spmv_library()
-    y = torch.empty_like(xp)
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.bsr_spmv_split_f32(hiT.data_ptr(), loT.data_ptr(),
-                                      idx.data_ptr(), xp.data_ptr(),
-                                      y.data_ptr(), nrb, nbpr, B, stream)
-    check(lib, code, "bsr_spmv_split")
-    launches["bsr_spmv_split"] += 1
-    return y
+    return _launch_split("bsr_spmv_split", hiT, loT, idx, xp, lanes=False)
 
 
 def bsr_matmat(dataT, idx, Xp):
@@ -383,27 +395,13 @@ def bsr_matmat(dataT, idx, Xp):
 
 def bsr_matmat_split(hiT, loT, idx, Xp):
     """B3 at "high": the bf16x3 f32 product of pre-split bf16 blocks with
-    the lane stack Xp (m, nrb*B), in one launch."""
+    the lane stack Xp (m, nrb*B), in one launch on the tensor cores
+    (``csrc/bsr_spmm_split.cu``)."""
     if Xp.device.type == "cpu":
         return bsr_matmat_split_plain(hiT, loT, idx, Xp)
     if Xp.device.type != "cuda":
         raise ValueError(f"no bsr_spmm_split kernel for device {Xp.device}")
-    nrb, nbpr, B = _check_launch((hiT, loT), idx, Xp, lanes=True)
-    if hiT.dtype != torch.bfloat16 or loT.dtype != torch.bfloat16 \
-            or Xp.dtype != torch.float32:
-        raise TypeError(f"bsr_spmm_split takes bf16 hi/lo blocks and f32 X, "
-                        f"got {hiT.dtype}, {loT.dtype}, {Xp.dtype}")
-    lib = bsr_spmm_library()
-    Y = torch.empty_like(Xp)
-    with torch.cuda.device(Xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.bsr_spmm_split_f32(hiT.data_ptr(), loT.data_ptr(),
-                                      idx.data_ptr(), Xp.data_ptr(),
-                                      Y.data_ptr(), nrb, nbpr, B,
-                                      Xp.shape[0], stream)
-    check(lib, code, "bsr_spmm_split")
-    launches["bsr_spmm_split"] += 1
-    return Y
+    return _launch_split("bsr_spmm_split", hiT, loT, idx, Xp, lanes=True)
 
 
 class BandedOperator(AbstractOperator):

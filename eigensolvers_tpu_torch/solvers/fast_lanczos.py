@@ -96,7 +96,8 @@ def fastLanczosDiagonalization(
     """Fused-path inexact shift-and-invert (block) Lanczos.
 
     Accepts TorchVector(s) (options read from the first guess; the basis
-    lives on its device) or a raw (nBlock, n) / (n,) array (on the CPU).
+    lives on its device) or a raw (nBlock, n) / (n,) array (on the card;
+    a raw tensor keeps its device).
     See module docstring for the deltas vs the general driver.  Reporting
     (``writeOut`` — default off on this latency-optimized path),
     per-iteration checkpointing (``saveEachIteration``), complex/general
@@ -120,8 +121,8 @@ def fastLanczosDiagonalization(
         arr = as_tensor(v0)
         guesses = arr[None, :] if arr.ndim == 1 else arr
         vec_cls = TorchVector
-        op = as_operator(Hsolve if Hsolve is not None else H)
-        opH = as_operator(H)
+        op = as_operator(Hsolve if Hsolve is not None else H, arr.device)
+        opH = as_operator(H, arr.device)
     nBlock, n = guesses.shape
     opts = options.get("linearSystemArgs", {})
     rtol = rtol if rtol is not None else opts.get("linear_tol", 1e-4)

@@ -64,8 +64,10 @@ def save_checkpoint(saveDir: str, tag, vectors: List, status: dict,
     np.savez(os.path.join(saveDir, f"meta_{tag}.npz"), **meta)
 
 
-def load_checkpoint(saveDir: str, tag, typeClass, options: Optional[dict] = None):
-    """Load a saved basis back as a list of ``typeClass`` vectors.
+def load_checkpoint(saveDir: str, tag, typeClass, options: Optional[dict] = None,
+                    device=None):
+    """Load a saved basis back as a list of ``typeClass`` vectors, placed
+    on ``device`` (default: the card, as ``TorchVector`` places arrays).
 
     :returns: (vectors, meta dict with status/eigencoefficients/eigenvalues)
     """
@@ -76,7 +78,8 @@ def load_checkpoint(saveDir: str, tag, typeClass, options: Optional[dict] = None
     for i in range(n):
         state = dict(np.load(os.path.join(saveDir, f"vec_{tag}_{i}.npz"),
                              allow_pickle=False))
-        vectors.append(typeClass.from_state_dict(state, options=options))
+        vectors.append(typeClass.from_state_dict(state, options=options,
+                                                  device=device))
     meta = {"status": json.loads(str(meta_raw["status_json"]))}
     for key in ("eigencoefficients", "eigenvalues"):
         if key in meta_raw:

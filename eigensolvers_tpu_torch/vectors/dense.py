@@ -70,8 +70,9 @@ def _mgs(x, Q):
 class TorchVector(AbstractVector):
     """Dense state vector backed by a torch tensor (any tensor shape;
     treated as a flat vector by the inner products).  A numpy ``array`` is
-    placed on ``device`` (default: the CPU); a tensor stays where it is
-    unless ``device`` is given."""
+    placed on ``device`` (default: the card, which must exist; pass
+    ``device="cpu"`` for the CPU); a tensor stays where it is unless
+    ``device`` is given."""
 
     def __init__(self, array, options: Optional[dict] = None, device=None):
         self.array = as_tensor(array, device)

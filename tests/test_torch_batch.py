@@ -217,7 +217,7 @@ def test_exact_solve_on_padded_operator():
     n, n_pad = 60, 64
     A = dd_matrix(n, seed=2)
     jpad = JaxPadded(jax_as_operator(A), n_pad)
-    tpad = PaddedOperator(DenseOperator(A), n_pad)
+    tpad = PaddedOperator(DenseOperator(A, device="cpu"), n_pad)
     b = np.zeros((2, n_pad))
     b[:, :n] = np.random.RandomState(5).rand(2, n)
     for j, t in ((jls.solve_exact(jpad, jnp.asarray(b[0]), 0.0),
@@ -329,7 +329,7 @@ def test_as_operator_wraps_scipy_linear_operator_like_jax():
                                  "linearIter": 4000}}
     b = np.random.RandomState(3).rand(n)
     jx = JaxVector.solve(JnpLinearOperator(), JaxVector(b, opts), 40.0)
-    tx = TorchVector.solve(Lop, TorchVector(b, opts), 40.0)
+    tx = TorchVector.solve(Lop, TorchVector(b, opts, device="cpu"), 40.0)
     assert _rel(as_np(tx.array), np.asarray(jx.array)) <= 1e-9
     x_ref = np.linalg.solve(40.0 * np.eye(n) - A, b)
     assert _rel(as_np(tx.array), x_ref) <= 1e-7

@@ -60,9 +60,10 @@ def torch_op(jop, device=CPU):
     return operator_from_arrays(arrays, device)
 
 
-def torch_vec(jv, options=None):
+def torch_vec(jv, options=None, device=CPU):
     """The port's vector from a JaxVector's state dict."""
-    return TorchVector.from_state_dict(jv.to_state_dict(), options)
+    return TorchVector.from_state_dict(jv.to_state_dict(), options,
+                                       device=device)
 
 
 def as_np(t):
@@ -129,13 +130,14 @@ def test_checkpoints_cross_between_packages(tmp_path):
     arrays = [rng.standard_normal(40) for _ in range(3)]
     status = {"cumIter": 3, "ev": np.arange(3.0)}
     torch_ckpt.save_checkpoint(str(tmp_path / "t"), 3,
-                               [TorchVector(a) for a in arrays], status,
+                               [TorchVector(a, device=CPU) for a in arrays],
+                               status,
                                eigenvalues=np.arange(3.0))
     jvs, jmeta = jax_ckpt.load_checkpoint(str(tmp_path / "t"), 3, JaxVector)
     jax_ckpt.save_checkpoint(str(tmp_path / "j"), 5,
                              [JaxVector(a) for a in arrays], status)
     tvs, tmeta = torch_ckpt.load_checkpoint(str(tmp_path / "j"), 5,
-                                            TorchVector)
+                                            TorchVector, device=CPU)
     for a, jv, tv in zip(arrays, jvs, tvs):
         np.testing.assert_array_equal(np.asarray(jv.array), a)
         np.testing.assert_array_equal(as_np(tv.array), a)

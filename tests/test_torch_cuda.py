@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels (B1 and B2 single-vector SpMV, B3
-multi-vector) against their plain PyTorch versions, on the card.  Marked ``cuda``: without a CUDA device every test here skips.
-Run them on a machine with an NVIDIA Hopper GPU and the CUDA toolkit:
+multi-vector; B2 and B3's bf16x3 form are one tensor-core kernel) against
+their plain PyTorch versions, on the card.  Marked ``cuda``: without a CUDA
+device every test here skips.  Run them on a machine with an NVIDIA Hopper
+GPU and the CUDA toolkit:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
@@ -98,8 +100,10 @@ def test_bsr_spmv_split_matches_plain_and_f64(dev, nrb, nbpr, B):
 
 
 # Lane counts: one chunk at each MR (1, 2, 4, 8), a partial chunk (3) and
-# m crossing the chunk of 8 (9, 17).
+# m crossing the chunk of 8 (9, 17).  The tensor-core split kernel takes 8,
+# 16 or 32 lanes per CTA and runs chunks of 32: 33 crosses one.
 LANES = [1, 2, 3, 4, 8, 9, 17]
+SPLIT_LANES = LANES + [33]
 
 
 def _lanes(nrb, B, m, dtype, dev, seed):
@@ -124,7 +128,7 @@ def test_bsr_spmm_matches_plain(dev, nrb, nbpr, B, m, dtype, tol):
     assert _relerr(Y, bsr.bsr_matmat_plain(dataT, idx, X)) <= tol
 
 
-@pytest.mark.parametrize("m", LANES)
+@pytest.mark.parametrize("m", SPLIT_LANES)
 @pytest.mark.parametrize("nrb,nbpr,B", SHAPES)
 def test_bsr_spmm_split_matches_plain_and_f64(dev, nrb, nbpr, B, m):
     """B3 at "high" against its plain version summed in f64, the exact
@@ -153,6 +157,57 @@ def test_bsr_spmm_split_matches_plain_and_f64(dev, nrb, nbpr, B, m):
     assert abs(_signature(Y, exact, y64)) <= SIG_TOL
     Y32 = bsr.bsr_matmat(dataT, idx, X)
     assert abs(1 - _signature(Y32, exact, y64)) <= SIG_TOL
+
+
+def _split_case(nrb, nbpr, B, m, dev, offset=0):
+    """hi/lo blocks (starting ``offset`` bf16 elements into their buffers)
+    and a lane stack; returns (dataT, hi, lo, idx, X)."""
+    dataT, idx, _ = _case(nrb, nbpr, B, torch.float32, dev, seed=B)
+
+    def placed(half):
+        buf = torch.zeros(half.numel() + offset, dtype=torch.bfloat16,
+                          device=dev)
+        buf[offset:] = half.reshape(-1)
+        return buf[offset:].view(half.shape)
+
+    hi = dataT.to(torch.bfloat16)
+    lo = (dataT - hi.float()).to(torch.bfloat16)
+    return (dataT, placed(hi), placed(lo), idx,
+            _lanes(nrb, B, m, torch.float32, dev, m))
+
+
+@pytest.mark.parametrize("m", [1, 9])
+@pytest.mark.parametrize("nrb,nbpr,B,offset", [
+    (4, 2, 7, 0),        # odd B: element copies, one warp
+    (3, 3, 50, 0),       # B % 4 == 2: 4-byte copies
+    (3, 2, 100, 1),      # hi/lo not 16-byte aligned: 2-byte copies
+    (2, 2, 200, 0),      # B > 128: two CTAs of output rows, one partial
+    (3, 2, 1, 0)])       # one-element blocks
+def test_split_kernel_takes_any_width_and_alignment(dev, nrb, nbpr, B,
+                                                    offset, m):
+    """The tensor-core kernel's narrower copies and partial tiles: the same
+    bounds against the exact split product as the slice's shapes."""
+    dataT, hi, lo, idx, X = _split_case(nrb, nbpr, B, m, dev, offset)
+    assert (hi.data_ptr() % 16 == 0) == (offset == 0)
+    Y = bsr.bsr_matmat_split(hi, lo, idx, X)
+    torch.cuda.synchronize()
+    exact = bsr.bsr_matmat_split_plain(hi, lo, idx, X, acc=torch.float64)
+    assert _relerr(Y, exact) <= _split_tol(nbpr, B)
+    y64 = bsr.bsr_matmat_plain(dataT.double(), idx, X.double())
+    assert abs(_signature(Y, exact, y64)) <= SIG_TOL
+
+
+def test_b2_launches_the_tensor_core_kernel(dev):
+    """B2 (one vector at "high") is the split kernel with m = 1, counted as
+    bsr_spmv_split: bit for bit the lane stack's result for that vector."""
+    _, hi, lo, idx, X = _split_case(7, 5, 128, 1, dev)
+    bsr.reset_launch_counts()
+    y = bsr.bsr_matvec_split(hi, lo, idx, X[0])
+    Y = bsr.bsr_matmat_split(hi, lo, idx, X)
+    torch.cuda.synchronize()
+    assert bsr.launches["bsr_spmv_split"] == 1
+    assert bsr.launches["bsr_spmm_split"] == 1
+    assert torch.equal(y, Y[0])
 
 
 def test_operator_matvec_launches_kernel(dev):

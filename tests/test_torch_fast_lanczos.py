@@ -169,7 +169,8 @@ def test_fast_preconditioned_matches_jax_and_general():
     g = rng.rand(150)
     g /= np.linalg.norm(g)
     (evj, _, stj), (evt, _, stt) = _both(A, [g], 45.0, 6, 4, 1e-8, opts)
-    evG, _, stG = lanczos(A, [TorchVector(g, opts)], 45.0, 6, 4, 1e-8,
+    evG, _, stG = lanczos(A, [TorchVector(g, opts, device="cpu")], 45.0,
+                          6, 4, 1e-8,
                           writeOut=False)
     assert stt["isConverged"] and stG["isConverged"]
     assert abs(_nearest(evt, 45.0) - _nearest(evG, 45.0)) < 1e-7
@@ -222,7 +223,8 @@ def test_fast_reporting_and_checkpoint(tmp_path):
     ck = paths["torch"]["saveDir"]
     tag = checkpointing.latest_tag(ck)
     assert tag == stt["cumIter"]
-    vecs, meta = checkpointing.load_checkpoint(ck, tag, TorchVector)
+    vecs, meta = checkpointing.load_checkpoint(ck, tag, TorchVector,
+                                               device="cpu")
     assert len(vecs) >= 2 and "eigenvalues" in meta
     assert meta["status"]["cumIter"] == tag
     # the JAX package reads the port's checkpoint
@@ -243,7 +245,7 @@ def test_fast_state_following_maxovlp_matches_jax():
     (evj, _, _), (evt, Yt, _) = _both(
         A, [guess], 50.0, 8, 6, 1e-9,
         pick=get_pick_function_maxOvlp(JaxVector(uv[:, target])),
-        tpick=torch_maxovlp(TorchVector(uv[:, target])))
+        tpick=torch_maxovlp(TorchVector(uv[:, target], device="cpu")))
     assert abs(evt[0] - evals[target]) < 1e-4 * max(1.0, abs(evals[target]))
     assert abs(evt[0] - evj[0]) < 1e-6
     assert abs(abs(uv[:, target] @ as_np(Yt[0].array)) - 1.0) < 1e-3

@@ -25,8 +25,7 @@ print(json.dumps({
     "jax_package": sorted(m for m in sys.modules
                           if m.split(".")[0] == "eigensolvers_tpu"),
     "modules": names,
-    "built": kernels.bsr_spmv_library.cache_info().currsize
-             + kernels.bsr_spmm_library.cache_info().currsize,
+    "built": sum(lib.cache_info().currsize for lib in kernels.LIBRARIES),
     "triton": "triton" in sys.modules,
 }))
 """

@@ -111,19 +111,19 @@ def _smoke_problem(M=16, B=32):
 
 def test_product_operator_matches_kronecker_sum():
     H_out, h_in, levels, _, _ = _smoke_problem()
-    op = product.kron_sum_bsr(H_out, h_in, 4)
+    op = product.kron_sum_bsr(H_out, h_in, 4, device="cpu")
     assert tuple(op.dataT.shape) == (16, 9, 32, 32)
     dense = np.kron(H_out, np.eye(32)) + np.kron(np.eye(16), h_in)
     np.testing.assert_allclose(as_np(op.to_dense()), dense, atol=1e-12)
     np.testing.assert_allclose(np.linalg.eigvalsh(dense)[:22], levels,
                                atol=1e-9)
     with pytest.raises(ValueError, match="bandwidth"):
-        product.kron_sum_bsr(H_out, h_in, 3)
+        product.kron_sum_bsr(H_out, h_in, 3, device="cpu")
 
 
 def test_smoke_problem_matches_jax_and_exact(tmp_path):
     H_out, h_in, levels, sigma, guess = _smoke_problem()
-    mine = product.kron_sum_bsr(H_out, h_in, 4)
+    mine = product.kron_sum_bsr(H_out, h_in, 4, device="cpu")
     jop = JaxBSR(np.swapaxes(as_np(mine.dataT), 2, 3), as_np(mine.idx),
                  mine.n, use_pallas=False)
     opts = {"linearSystemArgs": dict(OPTS["linearSystemArgs"],
@@ -146,7 +146,7 @@ def test_smoke_problem_f32_through_lanczos_config(precision):
     bound is 2e-4."""
     H_out, h_in, levels, sigma, guess = _smoke_problem()
     op = product.kron_sum_bsr(H_out, h_in, 4, dtype=torch.float32,
-                              precision=precision)
+                              device="cpu", precision=precision)
     report = {}
     opts = {"linearSystemArgs": dict(OPTS["linearSystemArgs"], linear_tol=1e-2,
                                      linear_atol=1e-2,
@@ -154,7 +154,7 @@ def test_smoke_problem_f32_through_lanczos_config(precision):
     bsr.reset_launch_counts()
     ev, Y, st = LanczosConfig(sigma=sigma, L=12, maxit=8, eConv=1e-7,
                               checkFitTol=1e-5, writeOut=False).run(
-        op, TorchVector(guess.astype(np.float32), opts))
+        op, TorchVector(guess.astype(np.float32), opts, device="cpu"))
     tol = 1e-5 if precision == "highest" else 2e-4
     assert abs(find_nearest(ev, sigma)[1] - levels[20]) <= tol * levels[20]
     assert Y[0].dtype == torch.float32

@@ -128,11 +128,12 @@ def test_operator_parity_via_convert(n, B, build):
     H = banded(n, bw=5, seed=7)
     if build == "dense":
         jop = JaxBSR.from_dense(H, block_size=B, use_pallas=False)
-        mine = bsr.BSROperator.from_dense(H, block_size=B)
+        mine = bsr.BSROperator.from_dense(H, block_size=B, device=CPU)
     else:
         jop = JaxBSR.from_scipy(sp.csr_matrix(H), block_size=B,
                                 use_pallas=False)
-        mine = bsr.BSROperator.from_scipy(sp.csr_matrix(H), block_size=B)
+        mine = bsr.BSROperator.from_scipy(sp.csr_matrix(H), block_size=B,
+                                          device=CPU)
     conv = torch_op(jop)
     np.testing.assert_array_equal(as_np(mine.dataT), np.asarray(jop.dataT))
     np.testing.assert_array_equal(as_np(conv.dataT), np.asarray(jop.dataT))
@@ -153,7 +154,7 @@ def test_operator_parity_via_convert(n, B, build):
 
 def test_as_operator_accepts_scipy_sparse():
     H = sp.csr_matrix(banded(100, bw=2, seed=9))
-    op = as_operator(H)
+    op = as_operator(H, device=CPU)
     assert isinstance(op, bsr.BSROperator)
     x = np.random.RandomState(0).rand(100)
     np.testing.assert_allclose(as_np(op.matvec(torch.as_tensor(x))),
@@ -167,7 +168,8 @@ def test_cpu_matvec_takes_plain_path_and_launches_nothing(prec):
     launch counters stay at 0.  "high" keeps the hi/lo buffers, which move
     with the module and appear in its state_dict."""
     H = banded(256, bw=3, seed=2).astype(np.float32)
-    op = bsr.BSROperator.from_dense(H, block_size=128, precision=prec)
+    op = bsr.BSROperator.from_dense(H, block_size=128, precision=prec,
+                                    device=CPU)
     bsr.reset_launch_counts()
     x = np.random.RandomState(0).rand(256).astype(np.float32)
     y = as_np(op.matvec(torch.as_tensor(x)))
@@ -193,11 +195,11 @@ def test_wrappers_refuse_devices_without_a_kernel():
 def test_constructor_validates_layout():
     dataT, idx, _ = _case(3, 2, 32, np.float64)
     with pytest.raises(ValueError, match="block-column"):
-        bsr.BSROperator(dataT, idx + 3, 96)
+        bsr.BSROperator(dataT, idx + 3, 96, device=CPU)
     with pytest.raises(ValueError, match="idx"):
-        bsr.BSROperator(dataT, idx[:, :1], 96)
+        bsr.BSROperator(dataT, idx[:, :1], 96, device=CPU)
     with pytest.raises(ValueError, match="does not fit"):
-        bsr.BSROperator(dataT, idx, 97)
+        bsr.BSROperator(dataT, idx, 97, device=CPU)
 
 
 # B3: nrb % 8 != 0, odd nbpr, and m across the kernel's chunk of 8
@@ -282,7 +284,8 @@ def test_high_matmat_columns_are_high_matvecs():
     rng = np.random.RandomState(0)
     n, B = 9 * 64 - 7, 64
     H = rng.standard_normal((n, n)).astype(np.float32)
-    op = bsr.BSROperator.from_dense(H, block_size=B, precision="high")
+    op = bsr.BSROperator.from_dense(H, block_size=B, precision="high",
+                                    device=CPU)
     X = torch.as_tensor(rng.standard_normal((n, 3)).astype(np.float32))
     Y = as_np(op.matmat(X))
     for k in range(3):
@@ -299,7 +302,7 @@ def test_banded_operator_matches_jax(n, offsets):
     for d in offsets:
         H += np.diag(rng.standard_normal(n - abs(d)), d)
     jop = JaxBanded.from_dense(H)
-    top = bsr.BandedOperator.from_dense(H)
+    top = bsr.BandedOperator.from_dense(H, device=CPU)
     assert top.offsets == jop.offsets and top.bandwidth == jop.bandwidth
     np.testing.assert_array_equal(as_np(top.bands), np.asarray(jop.bands))
     x = rng.rand(n)
@@ -321,14 +324,14 @@ def test_banded_operator_solves_like_jax():
     from eigensolvers_tpu_torch.ops import linear_solvers as tls
     H = banded(150, bw=2, seed=5) + np.diag(np.linspace(1, 30, 150))
     jop = JaxBanded.from_dense(H)
-    top = bsr.BandedOperator.from_dense(H)
+    top = bsr.BandedOperator.from_dense(H, device=CPU)
     b = np.random.RandomState(6).rand(150)
     jr = jls.minres(jop, b, 12.5, rtol=1e-10, maxiter=3000, precond="jacobi")
     tr = tls.minres(top, torch.as_tensor(b), 12.5, rtol=1e-10, maxiter=3000,
                     precond="jacobi")
     np.testing.assert_allclose(as_np(tr.x), np.asarray(jr.x),
                                atol=1e-9 * np.abs(np.asarray(jr.x)).max())
-    off = bsr.BandedOperator(np.ones((1, 5)), [1], 5)
+    off = bsr.BandedOperator(np.ones((1, 5)), [1], 5, device=CPU)
     assert not np.any(as_np(off.diagonal()))
 
 

@@ -6,6 +6,7 @@ subspace matrices agree to 1e-12 relative to their largest entry."""
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from eigensolvers_tpu import JaxVector
@@ -13,7 +14,13 @@ from eigensolvers_tpu.ops.operators import DenseOperator as JaxDense
 from eigensolvers_tpu.ops.sparse import BSROperator as JaxBSR
 
 from eigensolvers_tpu_torch import TorchVector
-from test_torch_common import as_np, banded, dd_matrix, torch_op, torch_vec
+from eigensolvers_tpu_torch.models import product
+from eigensolvers_tpu_torch.ops.operators import (DenseOperator,
+                                                  DiagonalOperator,
+                                                  as_operator)
+from eigensolvers_tpu_torch.ops.sparse import BandedOperator, BSROperator
+from test_torch_common import (CPU, as_np, banded, dd_matrix, torch_op,
+                               torch_vec)
 
 TOL = 1e-12
 
@@ -48,7 +55,7 @@ def test_state_dict_round_trip_both_ways():
                                   np.asarray(jv[0].array))
     with pytest.raises(ValueError, match="dense"):
         TorchVector.from_state_dict({"kind": np.asarray("mps"),
-                                     "array": np.zeros(3)})
+                                     "array": np.zeros(3)}, device="cpu")
 
 
 def test_norm_vdot_normalize():
@@ -158,7 +165,8 @@ def test_unported_solvers_name_their_roadmap_item(solver, sigma, match):
     """A complex shift on a real operator and RHS is the JAX package's
     split-complex path, which comes with FEAST."""
     _, top = _ops()[1]
-    b = TorchVector(np.ones(96), {"linearSystemArgs": {"linearSolver": solver}})
+    b = TorchVector(np.ones(96), {"linearSystemArgs": {"linearSolver": solver}},
+                    device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
         TorchVector.solve(top, b, sigma)
 
@@ -195,7 +203,7 @@ def test_gmres_on_hermitian_routes_to_minres_and_solve_batch_matches_jax():
     jop, top = _ops()[1]
     opts = {"linearSystemArgs": {"linearSolver": "gmres", "linear_tol": 1e-10,
                                  "linear_atol": 1e-10, "linearIter": 4000}}
-    b = TorchVector(np.ones(96), opts)
+    b = TorchVector(np.ones(96), opts, device="cpu")
     assert TorchVector.solve(top, b, 40.0).norm() > 0
     jbs = [JaxVector(np.random.RandomState(s).rand(96), opts) for s in (1, 2)]
     jx = JaxVector.solveBatch(jop, jbs, [40.0, 20.0])
@@ -209,11 +217,59 @@ def test_gmres_on_hermitian_routes_to_minres_and_solve_batch_matches_jax():
 def test_f32_vectors_stay_f32():
     _, top = _ops()[0]
     top32 = type(top)(top.dataT.float(), top.idx, top.n)
-    tv = [TorchVector(np.random.RandomState(s).rand(96).astype(np.float32))
-          for s in range(3)]
+    tv = [TorchVector(np.random.RandomState(s).rand(96).astype(np.float32),
+                      device="cpu") for s in range(3)]
     assert TorchVector.overlapMatrix(tv).dtype == np.float32
     assert TorchVector.matrixRepresentation(top32, tv).dtype == np.float32
     out = TorchVector.solve(top32, tv[0], 0.7)
     assert out.dtype == torch.float32
     assert TorchVector.orthogonalize_against_set(out, tv[1:]).dtype == \
         torch.float32
+
+
+# Every constructor a user reaches with host data: (build(data, **kw), the
+# host data, whether it also takes a tensor).  Without ``device`` each
+# places a numpy array on the card; with no card it raises.
+_H = banded(64, bw=2, seed=1)
+_ENTRY_POINTS = {
+    "TorchVector": (TorchVector, lambda: np.ones(8), True),
+    "DenseOperator": (DenseOperator, lambda: _H, True),
+    "DiagonalOperator": (DiagonalOperator, lambda: np.ones(8), True),
+    "BSROperator": (lambda d, **kw: BSROperator(
+        d, np.zeros((2, 1), np.int32), 64, **kw),
+        lambda: np.ones((2, 1, 32, 32)), True),
+    "BSROperator.from_dense": (BSROperator.from_dense, lambda: _H, False),
+    "BSROperator.from_scipy": (BSROperator.from_scipy,
+                               lambda: sp.csr_matrix(_H), False),
+    "BandedOperator": (lambda b, **kw: BandedOperator(b, [0], 8, **kw),
+                       lambda: np.ones((1, 8)), True),
+    "BandedOperator.from_dense": (BandedOperator.from_dense, lambda: _H,
+                                  False),
+    "as_operator(dense)": (as_operator, lambda: _H, True),
+    "as_operator(scipy)": (as_operator, lambda: sp.csr_matrix(_H), False),
+    "kron_sum_bsr": (lambda h, **kw: product.kron_sum_bsr(h, np.eye(4), 1,
+                                                          **kw),
+                     lambda: np.diag(np.arange(3.0)), False),
+}
+
+
+def _held(obj):
+    """The tensor a vector or operator holds."""
+    for name in ("array", "mat", "diag", "dataT", "bands"):
+        if hasattr(obj, name):
+            return getattr(obj, name)
+    raise AssertionError(f"{type(obj)} holds no tensor")
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name, monkeypatch):
+    """F3: host data with no ``device`` goes to the card, and with no card
+    the constructor raises, naming device="cpu", instead of falling back to
+    the CPU.  device="cpu", or a CPU tensor, lands on the CPU."""
+    build, data, takes_tensor = _ENTRY_POINTS[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build(data())
+    assert _held(build(data(), device="cpu")).device == CPU
+    if takes_tensor:
+        assert _held(build(torch.as_tensor(data()))).device == CPU
