@@ -14,8 +14,9 @@ Phases (any failure raises and the script exits non-zero):
    small shapes, with errors and CUDA-event timings: the single-vector SpMV
    (B1 ``bsr_spmv``, B2 ``bsr_spmv_split``) and the multi-vector product
    (B3 ``bsr_spmm``, ``bsr_spmm_split``) for m = 1, 2, 4, 8, 16, 32 vectors
-   and across the kernels' lane chunks (8 for ``bsr_spmm``, 32 for the
-   tensor-core ``bsr_spmm_split``, which B2 launches with m = 1); the bf16x3
+   and across the kernels' tiles and lane chunks (both read the blocks once
+   for up to 32 lanes and run more as chunks of 32; B2 is the tensor-core
+   ``bsr_spmm_split`` launched with m = 1); the bf16x3
    kernels against the exact split product, with a signature that tells
    them from a true-f32 product.  Beside each time: its bound (the larger
    of the bytes over the HBM rate and the flops over the peak rate of their
@@ -35,6 +36,8 @@ Phases (any failure raises and the script exits non-zero):
      "highest" (B3 for the solves and projections, B1 for the extends);
    - (d) the dense bench headline task (n = 2048) in f32 through
      ``fastLanczosDiagonalization`` (cuBLAS, no hand-written kernel);
+   - (e) ``fastLanczosDiagonalization`` with nBlock = 16 at "highest": the
+     16 levels nearest sigma, every MINRES pass one 16-lane B3 apply;
 5. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
    and a final JSON status line.
 """
@@ -49,22 +52,35 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
-# -- the slice's problem (see eigensolvers_tpu_torch/models/product.py) ------
-M_OUT, B_IN, BANDWIDTH = 2048, 128, 4          # n = 262,144; nbpr = 9
-OMEGA_OUT, LAM, OMEGA_IN, X_RANGE = 1.0, 1e-3, 1.3, (-7.0, 7.0)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+try:
+    from eigensolvers_tpu_torch import (TorchVector, calculateTarget,
+                                        inexactLanczosDiagonalization)
+    from eigensolvers_tpu_torch.models import product
+    from eigensolvers_tpu_torch.models.synthetic import known_spectrum_matrix
+    from eigensolvers_tpu_torch.ops import kernels, sparse as bsr
+    from eigensolvers_tpu_torch.ops.operators import DenseOperator
+    from eigensolvers_tpu_torch.solvers.fast_lanczos import \
+        fastLanczosDiagonalization
+    # the slice's operator (n = 262,144; nbpr = 9), the card's rates, the
+    # timing and the bound, shared with tools/bench_spmm.py
+    from eigensolvers_tpu_torch.tools.yardstick import (
+        B_IN, BANDWIDTH, M_OUT, PEAK_FLOPS, X_RANGE, bound, slice_factors,
+        time_ms)
+except ImportError as e:
+    raise SystemExit(f"chip_smoke: the eigensolvers_tpu_torch package is "
+                     f"not beside this script ({e})")
+
 TARGET_LEVEL = 20                              # sigma between levels 20 and 21
 LANCZOS = dict(L=12, maxit=8, eConv=1e-7, checkFitTol=1e-5)
 LINEAR = dict(linearSolver="minres", linearIter=20000, linear_tol=1e-2,
               linear_atol=1e-2, preconditioner="jacobi",
               errorOnNonConvergence=False)
 NBLOCK = 2
+NBLOCK_WIDE = 16                               # run (e)
 LANES = (1, 2, 4, 8, 16, 32)                   # B3 at the slice shape
-# The card's rates for the bound (NVIDIA's H100 SXM data sheet, dense, at
-# the 700 W limit): HBM bytes/s and peak flop/s by type; f32 and f64 on
-# the CUDA cores, bf16 on the tensor cores.
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "f64": 34e12, "bf16": 989e12}
 NO_LIBRARY = ("none: no single PyTorch call computes the bf16x3 product "
               "(x split per element, three bf16 products, xl*lo dropped)")
 # the dense headline task of bench.py (bench_lanczos_headline)
@@ -120,34 +136,7 @@ def signature(y, exact, y64):
     return float(((y.double() - exact.double()) * d).sum() / (d * d).sum())
 
 
-def time_ms(torch, fn, reps=30, warmup=3):
-    """Median CUDA-event time of ``fn`` in ms over ``reps`` runs."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def bound(block_bytes, idx_bytes, m, npad, itemsize, flops, peak):
-    """The least time of one product, in ms, and what sets it: each input
-    byte read once and each output byte written once over the HBM rate,
-    against the flops over the peak rate of their type."""
-    t_bytes = (block_bytes + idx_bytes + 2 * m * npad * itemsize) / HBM_BPS
-    t_ops = flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def kernel_names(torch, fn):
+def kernel_names(fn):
     """The CUDA kernels one call of ``fn`` runs, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -161,7 +150,7 @@ def kernel_names(torch, fn):
         return [f"not measured ({type(e).__name__}: {e})"]
 
 
-def compare(torch, name, kern, plain, ref, tol, gb, bound_ms, bound_by,
+def compare(name, kern, plain, ref, tol, gb, bound_ms, bound_by,
             library=None):
     """Hold a kernel against its plain version (or ``ref``) and time both in
     turns (plain, kernel, kernel, plain), then the library call, if any,
@@ -175,10 +164,10 @@ def compare(torch, name, kern, plain, ref, tol, gb, bound_ms, bound_by,
     require(np.isfinite(err) and err <= tol,
             f"{name} relative error {err:.3e} > {tol:.0e}")
     del yk, yp
-    ms_p1 = time_ms(torch, plain)
-    ms_k1 = time_ms(torch, kern)
-    ms_k2 = time_ms(torch, kern)
-    ms_p2 = time_ms(torch, plain)
+    ms_p1 = time_ms(plain)
+    ms_k1 = time_ms(kern)
+    ms_k2 = time_ms(kern)
+    ms_p2 = time_ms(plain)
     ms_k, ms_p = min(ms_k1, ms_k2), min(ms_p1, ms_p2)
     lib_ms, lib_note = None, NO_LIBRARY
     if library is not None:
@@ -196,24 +185,9 @@ def compare(torch, name, kern, plain, ref, tol, gb, bound_ms, bound_by,
 
 
 def main():
-    import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    try:
-        from eigensolvers_tpu_torch import (TorchVector, calculateTarget,
-                                            inexactLanczosDiagonalization)
-        from eigensolvers_tpu_torch.models import product
-        from eigensolvers_tpu_torch.models.synthetic import \
-            known_spectrum_matrix
-        from eigensolvers_tpu_torch.ops import kernels, sparse as bsr
-        from eigensolvers_tpu_torch.ops.operators import DenseOperator
-        from eigensolvers_tpu_torch.solvers.fast_lanczos import \
-            fastLanczosDiagonalization
-    except ImportError as e:
-        raise SystemExit(f"chip_smoke: the eigensolvers_tpu_torch package "
-                         f"is not beside this script ({e})")
 
     # -- 1. device ----------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -240,8 +214,7 @@ def main():
 
     # -- 3. kernels vs plain ------------------------------------------------
     t0 = time.perf_counter()
-    H_out = product.anharmonic_oscillator_fbr(M_OUT, OMEGA_OUT, LAM)
-    h_in = product.sinc_dvr_oscillator(B_IN, OMEGA_IN, X_RANGE)
+    H_out, h_in = slice_factors()
     e_out = np.linalg.eigvalsh(H_out)
     e_in = np.linalg.eigvalsh(h_in)
     op32 = product.kron_sum_bsr(H_out, h_in, BANDWIDTH, torch.float32, dev,
@@ -323,9 +296,9 @@ def main():
         err = relerr(y.T if y.ndim == 2 else y, ref())
         if not err <= tol:
             return None, f"disagrees with the plain product: {err:.2e}"
-        ms = min(time_ms(torch, lambda: A @ x), time_ms(torch, lambda: A @ x))
+        ms = min(time_ms(lambda: A @ x), time_ms(lambda: A @ x))
         return ms, (f"A @ x, A a torch.sparse_bsr_tensor (rel err {err:.1e});"
-                    f" kernels: {'; '.join(kernel_names(torch, lambda: A @ x))}")
+                    f" kernels: {'; '.join(kernel_names(lambda: A @ x))}")
 
     results = {}
     for name, kern, plain, ref, tol, gb, kind, lib in (
@@ -341,7 +314,7 @@ def main():
             ("bsr_spmv_split", lambda: bsr.bsr_matvec_split(hi, lo, idx, x32),
              lambda: bsr.bsr_matvec_split_plain(hi, lo, idx, x32),
              exactX[0], split_tol(nbpr, B), gb32, "split", None)):
-        results[name] = compare(torch, f"{name} at {shape}", kern, plain,
+        results[name] = compare(f"{name} at {shape}", kern, plain,
                                 ref, tol, gb, *bound_of(kind, 1), lib)
     split_checks("bsr_spmv_split", bsr.bsr_matvec_split(hi, lo, idx, x32),
                  exactX[0], bsr.bsr_matvec(op32.dataT, idx, x32), ref32,
@@ -366,8 +339,8 @@ def main():
                  lambda: bsr.bsr_matmat_split(hi, lo, idx, Xm32),
                  lambda: bsr.bsr_matmat_split_plain(hi, lo, idx, Xm32),
                  exactX[:m], split_tol(nbpr, B), gb32, "split", None)):
-            results[(name, m)] = compare(torch, f"{name} m={m} at {shape}",
-                                         kern, plain, ref, tol, gb,
+            results[(name, m)] = compare(f"{name} m={m} at {shape}", kern,
+                                         plain, ref, tol, gb,
                                          *bound_of(kind, m), lib)
         split_checks(f"bsr_spmm_split m={m}",
                      bsr.bsr_matmat_split(hi, lo, idx, Xm32), exactX[:m],
@@ -382,7 +355,7 @@ def main():
                               device=dev)
         i5 = torch.as_tensor(r.randint(0, nr, (nr, nb)), dtype=torch.int32,
                              device=dev)
-        V64 = torch.as_tensor(r.standard_normal((33, nr * Bs)), device=dev)
+        V64 = torch.as_tensor(r.standard_normal((65, nr * Bs)), device=dev)
         d32, V32 = d64.float(), V64.float()
         v64, v32 = V64[0].contiguous(), V32[0].contiguous()
         h5 = d32.to(torch.bfloat16)
@@ -402,7 +375,7 @@ def main():
         # (key, result, lanes, the signature it must have)
         sigs = [("B2", y2, 1, 0.0), ("f32", bsr.bsr_matvec(d32, i5, v32), 1,
                                      1.0)]
-        for m in (1, 3, 9, 17, 33):   # across the chunks of 8 and of 32
+        for m in (1, 3, 9, 17, 31, 33, 65):   # across the tiles and chunks
             W64, W32 = V64[:m].contiguous(), V32[:m].contiguous()
             Ys = bsr.bsr_matmat_split(h5, l5, i5, W32)
             cases += [
@@ -441,18 +414,28 @@ def main():
     levels = product.kron_sum_levels(e_out, e_in, TARGET_LEVEL + 12)
     sigma = float(levels[TARGET_LEVEL]
                   + 0.2 * (levels[TARGET_LEVEL + 1] - levels[TARGET_LEVEL]))
-    nearest2 = np.sort(levels[np.argsort(np.abs(levels - sigma))[:NBLOCK]])
+
+    def nearest(k):
+        """The k exact levels nearest sigma, ascending."""
+        return np.sort(levels[np.argsort(np.abs(levels - sigma))[:k]])
+
     h_norm = max(abs(e_out[-1] + e_in[-1]), abs(e_out[0] + e_in[0]))
-    # Low-energy random guesses: random amplitudes on the 32 lowest outer HO
-    # functions times random smooth (polynomial x Gaussian) inner packets,
-    # both parities in both modes; the block's two are orthonormalized.
     xg = np.linspace(X_RANGE[0], X_RANGE[1], B_IN)
-    packets = np.stack([xg ** p * np.exp(-xg ** 2 / 2) for p in range(4)])
-    guesses = np.zeros((NBLOCK, M_OUT, B_IN))
-    for s in range(NBLOCK):
-        guesses[s, :32] = np.random.RandomState(s).standard_normal(
-            (32, 4)) @ packets
-    block = np.linalg.qr(guesses.reshape(NBLOCK, -1).T)[0].T
+
+    def guess_block(nblock, npackets):
+        """Low-energy random guesses: random amplitudes (seeds 0, 1, ...)
+        on the 32 lowest outer HO functions times random smooth (polynomial
+        x Gaussian) inner packets, both parities in both modes,
+        orthonormalized."""
+        packets = np.stack([xg ** p * np.exp(-xg ** 2 / 2)
+                            for p in range(npackets)])
+        guesses = np.zeros((nblock, M_OUT, B_IN))
+        for s in range(nblock):
+            guesses[s, :32] = np.random.RandomState(s).standard_normal(
+                (32, npackets)) @ packets
+        return np.linalg.qr(guesses.reshape(nblock, -1).T)[0].T
+
+    block = guess_block(NBLOCK, 4)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -580,7 +563,7 @@ def main():
         (ev, Y, status), wall, counts, unconv = run(
             fastLanczosDiagonalization, op, vectors(block, report), sigma,
             LANCZOS["L"], LANCZOS["maxit"], LANCZOS["eConv"])
-        check_states(tag, prec, ev, Y, nearest2)
+        check_states(tag, prec, ev, Y, nearest(NBLOCK))
         report_line(tag, status, report, wall, unconv)
         check_counts(tag, counts, {multi: report["matmats"]})
         walls[tag] = wall
@@ -593,7 +576,7 @@ def main():
     (ev, Y, status), wall, counts, unconv = run(
         inexactLanczosDiagonalization, op32, vectors(block, report), sigma,
         writeOut=False, batchBlockSolves=True, **LANCZOS)
-    check_states(tag, "highest", ev, Y, nearest2)
+    check_states(tag, "highest", ev, Y, nearest(NBLOCK))
     report_line(tag, status, report, wall, unconv)
     extends = status["timers"]["extend_subspace"]["calls"]
     check_counts(tag, counts, {"bsr_spmm": report["matmats"] + 1
@@ -602,6 +585,22 @@ def main():
           f"{report['matmats']} in batched solves + 1 + {status['restarts']} "
           f"restarts (projected H); bsr_spmv launches {counts['bsr_spmv']} = "
           f"{extends} extends", flush=True)
+    walls[tag] = wall
+    for k, v in counts.items():
+        totals[k] += v
+
+    # (e): the fused driver with a block of 16, the 16 levels nearest sigma
+    # (the inner mode reaches its 6th level among them: six packets); every
+    # MINRES pass is one 16-lane apply
+    report = {}
+    tag = f"(e) fast highest, nBlock {NBLOCK_WIDE}"
+    (ev, Y, status), wall, counts, unconv = run(
+        fastLanczosDiagonalization, op32,
+        vectors(guess_block(NBLOCK_WIDE, 6), report), sigma, LANCZOS["L"],
+        LANCZOS["maxit"], LANCZOS["eConv"])
+    check_states(tag, "highest", ev, Y, nearest(NBLOCK_WIDE))
+    report_line(tag, status, report, wall, unconv)
+    check_counts(tag, counts, {"bsr_spmm": report["matmats"]})
     walls[tag] = wall
     for k, v in counts.items():
         totals[k] += v

@@ -40,10 +40,11 @@ def nvcc_path() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/{name}.cu`` (if not built yet) and return the path of
-    the shared library."""
-    src = CSRC / f"{name}.cu"
+def build(name: str, src=None) -> Path:
+    """Compile ``csrc/{name}.cu`` (or another version of it, the source
+    file ``src``) if not built yet, and return the path of the shared
+    library."""
+    src = Path(src) if src is not None else CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
@@ -65,12 +66,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _load(name: str, signatures: dict) -> ctypes.CDLL:
-    """Build ``csrc/{name}.cu``, load it and declare its entry points
-    (``signatures`` maps each to its argument types; each returns the CUDA
-    error code of its launch).  ``lib.error_string`` names the library's
-    ``{name}_error_string``."""
-    lib = ctypes.CDLL(str(build(name)))
+def _load(name: str, signatures: dict, src=None) -> ctypes.CDLL:
+    """Build ``csrc/{name}.cu`` (or ``src``, as :func:`build`), load it and
+    declare its entry points (``signatures`` maps each to its argument
+    types; each returns the CUDA error code of its launch).
+    ``lib.error_string`` names the library's ``{name}_error_string``."""
+    lib = ctypes.CDLL(str(build(name, src)))
     for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = _I
@@ -91,11 +92,18 @@ def bsr_spmv_library() -> ctypes.CDLL:
     return _load("bsr_spmv", {"bsr_spmv_f32": _ONE, "bsr_spmv_f64": _ONE})
 
 
+def load_bsr_spmm(src=None) -> ctypes.CDLL:
+    """Build and load ``csrc/bsr_spmm.cu``, or another version of it
+    (``src``): for timing versions side by side."""
+    return _load("bsr_spmm", {"bsr_spmm_f32": _MANY, "bsr_spmm_f64": _MANY},
+                 src)
+
+
 @functools.cache
 def bsr_spmm_library() -> ctypes.CDLL:
     """The multi-vector block-ELL kernels (``csrc/bsr_spmm.cu``, B3 in f32
     and f64), built on first call."""
-    return _load("bsr_spmm", {"bsr_spmm_f32": _MANY, "bsr_spmm_f64": _MANY})
+    return load_bsr_spmm()
 
 
 @functools.cache

@@ -49,7 +49,7 @@ launches = {"bsr_spmv": 0, "bsr_spmv_split": 0, "bsr_spmm": 0,
             "bsr_spmm_split": 0}
 
 _MAX_BLOCK = 1024   # one thread per block row: the CUDA block-size limit
-_MAX_LANES = 8 * 65535   # B3 runs chunks of 8 vectors on the grid's y axis
+_MAX_LANES = 32 * 65535  # B3 runs chunks of 32 vectors on the grid's z axis
 
 
 def reset_launch_counts() -> None:

@@ -1,0 +1,55 @@
+"""The slice operator of ``chip_smoke.py`` and the yardstick its kernel
+times are read against, shared by ``chip_smoke.py`` and
+:mod:`eigensolvers_tpu_torch.tools.bench_spmm`: the operator's parameters,
+the card's rates, CUDA-event timing and the bound of one product."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models import product
+
+# A 2-mode vibrational Hamiltonian (see models/product.py): a quartic
+# oscillator in 2048 HO functions (bandwidth 4) times a 128-point sinc DVR;
+# n = 262,144, dataT (2048, 9, 128, 128).
+M_OUT, B_IN, BANDWIDTH = 2048, 128, 4
+OMEGA_OUT, LAM, OMEGA_IN, X_RANGE = 1.0, 1e-3, 1.3, (-7.0, 7.0)
+# The card's rates for the bound (NVIDIA's H100 SXM data sheet, dense, at
+# the 700 W limit): HBM bytes/s and peak flop/s by type; f32 and f64 on
+# the CUDA cores, bf16 on the tensor cores.
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12, "bf16": 989e12}
+
+
+def slice_factors():
+    """The slice operator's outer and inner factors (H_out, h_in)."""
+    return (product.anharmonic_oscillator_fbr(M_OUT, OMEGA_OUT, LAM),
+            product.sinc_dvr_oscillator(B_IN, OMEGA_IN, X_RANGE))
+
+
+def time_ms(fn, reps=30, warmup=3):
+    """Median CUDA-event time of ``fn`` in ms over ``reps`` runs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound(block_bytes, idx_bytes, m, npad, itemsize, flops, peak):
+    """The least time of one product, in ms, and what sets it: each input
+    byte read once and each output byte written once over the HBM rate,
+    against the flops over the peak rate of their type."""
+    t_bytes = (block_bytes + idx_bytes + 2 * m * npad * itemsize) / HBM_BPS
+    t_ops = flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")

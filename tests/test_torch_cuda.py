@@ -99,11 +99,12 @@ def test_bsr_spmv_split_matches_plain_and_f64(dev, nrb, nbpr, B):
     assert abs(1 - _signature(y32, exact, y64)) <= SIG_TOL
 
 
-# Lane counts: one chunk at each MR (1, 2, 4, 8), a partial chunk (3) and
-# m crossing the chunk of 8 (9, 17).  The tensor-core split kernel takes 8,
+# Lane counts of B3 (bsr_spmm): one CTA of each tile (1, 2, 4, 8, 16, 32
+# lanes), partial tiles (3, 9, 17, 31) and m crossing the chunk of 32 (33,
+# 65, the last a chunk of one lane).  The tensor-core split kernel takes 8,
 # 16 or 32 lanes per CTA and runs chunks of 32: 33 crosses one.
-LANES = [1, 2, 3, 4, 8, 9, 17]
-SPLIT_LANES = LANES + [33]
+LANES = [1, 2, 3, 4, 8, 9, 16, 17, 31, 32, 33, 65]
+SPLIT_LANES = [1, 2, 3, 4, 8, 9, 17, 33]
 
 
 def _lanes(nrb, B, m, dtype, dev, seed):
@@ -125,6 +126,46 @@ def test_bsr_spmm_matches_plain(dev, nrb, nbpr, B, m, dtype, tol):
     Y = bsr.bsr_matmat(dataT, idx, X)
     torch.cuda.synchronize()
     assert bsr.launches["bsr_spmm"] == 1
+    assert _relerr(Y, bsr.bsr_matmat_plain(dataT, idx, X)) <= tol
+
+
+@pytest.mark.parametrize("nrb,nbpr,B", SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_bsr_spmm_edge_lanes_match_bsr_spmv(dev, nrb, nbpr, B, dtype, tol):
+    """Rows 0 and m - 1 of a 32-lane product (the first and last lane of
+    one tile of 32) against B1 on those lanes: two summation orders, the
+    bound of the B3 test above."""
+    dataT, idx, _ = _case(nrb, nbpr, B, dtype, dev, seed=5)
+    X = _lanes(nrb, B, 32, dtype, dev, seed=6)
+    Y = bsr.bsr_matmat(dataT, idx, X)
+    for k in (0, 31):
+        y = bsr.bsr_matvec(dataT, idx, X[k].contiguous())
+        torch.cuda.synchronize()
+        assert _relerr(Y[k], y) <= tol
+
+
+@pytest.mark.parametrize("m", [1, 9, 33])
+@pytest.mark.parametrize("nrb,nbpr,B,offset", [
+    (4, 2, 7, 0),        # odd B: element copies, a partial chunk of rows j
+    (3, 3, 50, 0),       # B % 4 == 2: 8-byte copies in f32
+    (3, 2, 100, 1),      # blocks not 16-byte aligned: element copies
+    (2, 2, 200, 0),      # B > 128: two CTAs of output rows, one partial
+    (3, 2, 1, 0)])       # one-element blocks
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_bsr_spmm_takes_any_width_and_alignment(dev, nrb, nbpr, B, offset, m,
+                                                dtype, tol):
+    """B3's narrower copies, partial slabs and partial tiles against the
+    plain product, with the bound of the B3 test above."""
+    dataT, idx, _ = _case(nrb, nbpr, B, dtype, dev, seed=B)
+    buf = torch.zeros(dataT.numel() + offset, dtype=dtype, device=dev)
+    buf[offset:] = dataT.reshape(-1)
+    placed = buf[offset:].view(dataT.shape)
+    assert (placed.data_ptr() % 16 == 0) == (offset == 0)
+    X = _lanes(nrb, B, m, dtype, dev, seed=m)
+    Y = bsr.bsr_matmat(placed, idx, X)
+    torch.cuda.synchronize()
     assert _relerr(Y, bsr.bsr_matmat_plain(dataT, idx, X)) <= tol
 
 

@@ -202,8 +202,9 @@ def test_constructor_validates_layout():
         bsr.BSROperator(dataT, idx, 97, device=CPU)
 
 
-# B3: nrb % 8 != 0, odd nbpr, and m across the kernel's chunk of 8
-@pytest.mark.parametrize("m", [1, 3, 9])
+# B3: nrb % 8 != 0, odd nbpr, and m across the kernel's tiles (up to 32
+# lanes) and its chunk of 32
+@pytest.mark.parametrize("m", [1, 3, 9, 16, 32, 33])
 @pytest.mark.parametrize("nrb,nbpr,B", [(5, 3, 32), (9, 5, 64), (3, 1, 64)])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_b3_plain_matches_jax_xla(nrb, nbpr, B, m, dtype):
