@@ -13,8 +13,8 @@ Phases (any failure raises and the script exits non-zero):
 3. kernels vs plain PyTorch on the card, at the slice shape and at ragged
    small shapes, with errors and CUDA-event timings: the single-vector SpMV
    (B1 ``bsr_spmv``, B2 ``bsr_spmv_split``) and the multi-vector product
-   (B3 ``bsr_spmm``, ``bsr_spmm_split``) for m = 1, 2, 4, 8, 16, 32 vectors
-   and across the kernels' tiles and lane chunks (both read the blocks once
+   (B3 ``bsr_spmm``, ``bsr_spmm_split``) for m = 1, 2, 4, 8, 16, 32 and
+   run (f)'s 64 vectors, and across the kernels' tiles and lane chunks (both read the blocks once
    for up to 32 lanes and run more as chunks of 32; B2 is the tensor-core
    ``bsr_spmm_split`` launched with m = 1); the bf16x3
    kernels against the exact split product, with a signature that tells
@@ -38,10 +38,23 @@ Phases (any failure raises and the script exits non-zero):
      ``fastLanczosDiagonalization`` (cuBLAS, no hand-written kernel);
    - (e) ``fastLanczosDiagonalization`` with nBlock = 16 at "highest": the
      16 levels nearest sigma, every MINRES pass one 16-lane B3 apply;
+   - (f) ``feastDiagonalization`` on a window of six levels around sigma,
+     f32 solves at "highest" with the split-complex default and the fused
+     loop: every MINRES pass one B3 apply of all 2 nk m0 real lanes; every
+     exact level in the window found, with its f64 residual; then the
+     share of a pass the card is busy, from ``torch.profiler``;
+   - (g) bench.py's FEAST window task (n = 2048, dense, f32, cuBLAS) with
+     the bench's own 1e-4 oracle;
+   - (h) the CH3CN 6-mode cut (``ch3cn_operator(N=14, nModesCut=6)``,
+     n = 7,529,536): the grouped sum-of-products apply in f64 and f32,
+     fused at 256 and unfused, timed and held against a numpy apply of the
+     same groups on the host, then inexact Lanczos in f64 below the bottom
+     of the spectrum for the 3 lowest levels, with their f64 residuals;
 5. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
    and a final JSON status line.
 """
 
+import collections
 import json
 import os
 import subprocess
@@ -57,13 +70,21 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 try:
     from eigensolvers_tpu_torch import (TorchVector, calculateTarget,
-                                        inexactLanczosDiagonalization)
+                                        feastDiagonalization,
+                                        inexactLanczosDiagonalization,
+                                        select_within_range)
     from eigensolvers_tpu_torch.models import product
+    from eigensolvers_tpu_torch.models.molecules import ch3cn_operator
     from eigensolvers_tpu_torch.models.synthetic import known_spectrum_matrix
     from eigensolvers_tpu_torch.ops import kernels, sparse as bsr
+    from eigensolvers_tpu_torch.ops.linear_solvers import gmres_splitc_batch
     from eigensolvers_tpu_torch.ops.operators import DenseOperator
     from eigensolvers_tpu_torch.solvers.fast_lanczos import \
         fastLanczosDiagonalization
+    from eigensolvers_tpu_torch.solvers.feast import _contour
+    from eigensolvers_tpu_torch.tools.profile_passes import \
+        profile as profile_passes
+    from eigensolvers_tpu_torch.utils.units import au2unit, unit2au
     # the slice's operator (n = 262,144; nbpr = 9), the card's rates, the
     # timing and the bound, shared with tools/bench_spmm.py
     from eigensolvers_tpu_torch.tools.yardstick import (
@@ -80,7 +101,39 @@ LINEAR = dict(linearSolver="minres", linearIter=20000, linear_tol=1e-2,
               errorOnNonConvergence=False)
 NBLOCK = 2
 NBLOCK_WIDE = 16                               # run (e)
-LANES = (1, 2, 4, 8, 16, 32)                   # B3 at the slice shape
+# run (f): FEAST on the window whose edges lie halfway between levels
+# 17|18 and 23|24 (the six levels 18..23 around sigma); m0 = 8 takes the two
+# nearest outside levels too, so no guess vector is left to the solve noise.
+# Most J-symmetrized lanes need more than 3,000 MINRES iterations to reach
+# even 1e-2 here, so, as bench.py's FEAST task does, each solve is capped
+# (linearIter 2,500, no escalation rounds): inexact FEAST with the f64
+# carry converges through them, and 8 outer iterations bring every level
+# within the gates (~60 s on the H100, PERF.md)
+FEAST_LEVELS = (18, 23)
+FEAST = dict(nc=8, m0=8, eConv=1e-6, maxit=8, npackets=8)
+FEAST_LINEAR = dict(linearSolver="minres", linearIter=2500, linear_tol=1e-3,
+                    linear_atol=1e-5, preconditioner="jacobi",
+                    errorOnNonConvergence=False, escalateIter=0)
+F_LANES = 2 * (FEAST["nc"] // 2) * FEAST["m0"]  # real lanes of one pass
+LANES = (1, 2, 4, 8, 16, 32, F_LANES)          # B3 at the slice shape
+# run (g): bench.py's FEAST window task (bench_feast) and its oracle
+FEAST_BENCH = dict(n=2048, eMin=1000.25, eMax=1004.75, m0=10, nc=8,
+                   eConv=1e-6, maxit=8, oracle=1e-4)
+FEAST_BENCH_LINEAR = {"linearSolver": "minres", "linearIter": 2500,
+                      "linear_tol": 1e-5, "errorOnNonConvergence": False,
+                      "escalateIter": 0}
+# run (h): the CH3CN 6-mode cut of bench.py's bench_sop; the apply's gates
+# are the bench's: f32 within 3x the numpy f32 error floor (+1e-10), f64
+# within 1e-10 of max |y| of the numpy f64 apply (summation order).  The
+# Lanczos run: f64 on the faster f64 form, sigma 500 cm-1 below the
+# harmonic zero-point energy, a block of three guesses (the ground product
+# state and the fundamentals of the two softest modes, x4 and x3) for the
+# 3 lowest levels.
+CH3CN = dict(N=14, cut=6, fuse=256, guesses=((), (3,), (2,)))
+CH3CN_LANCZOS = dict(L=8, maxit=3, eConv=1e-9, checkFitTol=1e-5)
+CH3CN_LINEAR = dict(linearSolver="minres", linearIter=4000, linear_tol=1e-4,
+                    linear_atol=1e-8, preconditioner="jacobi",
+                    errorOnNonConvergence=False)
 NO_LIBRARY = ("none: no single PyTorch call computes the bf16x3 product "
               "(x split per element, three bf16 products, xl*lo dropped)")
 # the dense headline task of bench.py (bench_lanczos_headline)
@@ -134,6 +187,29 @@ def signature(y, exact, y64):
     roundoff does not align with d) and ~1 for a true-f32 product."""
     d = y64.double() - exact.double()
     return float(((y.double() - exact.double()) * d).sum() / (d * d).sum())
+
+
+def np_sop_apply(groups, id_coeff, dims, x, dtype):
+    """A grouped sum-of-products apply in numpy on the host, the oracle of
+    run (h): per group, each active mode one batched matmul over the term
+    axis, then the term sum (bench.py's np_apply, as matmuls)."""
+    xt = np.asarray(x, dtype).reshape(dims)
+    y = np.asarray(id_coeff, dtype) * xt
+    for modes, facs in groups:
+        S = facs[0].shape[0]
+        xb = np.broadcast_to(xt, (S,) + tuple(dims))
+        for mode, f in zip(modes, facs):
+            pre = int(np.prod(dims[:mode]))
+            post = int(np.prod(dims[mode + 1:]))
+            f = f.astype(dtype)
+            if post == 1:
+                xb = np.matmul(xb.reshape(S, pre, dims[mode]),
+                               f.transpose(0, 2, 1))
+            else:
+                xb = np.matmul(f[:, None],
+                               xb.reshape(S, pre, dims[mode], post))
+        y = y + xb.reshape((S,) + tuple(dims)).sum(axis=0)
+    return y.reshape(-1)
 
 
 def kernel_names(fn):
@@ -445,8 +521,8 @@ def main():
         bool(s > 0)
     host_read_us = (time.perf_counter() - t0) / 200 * 1e6
 
-    def vectors(rows, report):
-        opts = {"linearSystemArgs": dict(LINEAR, report=report)}
+    def vectors(rows, report, linear=LINEAR):
+        opts = {"linearSystemArgs": dict(linear, report=report)}
         return [TorchVector(torch.as_tensor(r, dtype=torch.float32,
                                             device=dev), opts) for r in rows]
 
@@ -496,11 +572,13 @@ def main():
 
     def check_counts(tag, counts, expected):
         """Every BSR kernel's launches in the run equal the applies the
-        run reports for it; kernels not named launch 0 times."""
+        run reports for it; kernels not named launch 0 times (the dense and
+        sum-of-products runs name none)."""
         want = {k: expected.get(k, 0) for k in counts}
         require(counts == want, f"{tag}: launches {counts}, the run "
                 f"reports {want}")
-        require(any(want.values()) or tag == "(d) dense",
+        require(any(want.values()) or tag in ("(d) dense", "(g) dense FEAST",
+                                              "(h) CH3CN Lanczos"),
                 f"{tag}: no kernel launched")
 
     def report_line(tag, status, report, wall, unconverged):
@@ -604,6 +682,92 @@ def main():
     walls[tag] = wall
     for k, v in counts.items():
         totals[k] += v
+
+    # (f): FEAST on the window of levels 18..23 around sigma: f32 solves at
+    # "highest", the split-complex default and the fused loop.  Every MINRES
+    # pass is one B3 apply of all 2 nk m0 real lanes; each outer iteration
+    # adds one f64 apply of the m0 carried vectors (the subspace H).
+    lo, hi = FEAST_LEVELS
+    e_min = 0.5 * float(levels[lo - 1] + levels[lo])
+    e_max = 0.5 * float(levels[hi] + levels[hi + 1])
+    want = levels[lo:hi + 1]
+    m0, nk = FEAST["m0"], FEAST["nc"] // 2
+    report, lanes = {}, []
+    b3 = bsr.bsr_matmat
+
+    def b3_lanes(dataT, idx, Xp):              # records each call's lanes
+        lanes.append(Xp.shape[0])
+        return b3(dataT, idx, Xp)
+
+    tag = "(f) FEAST highest"
+    bsr.bsr_matmat = b3_lanes
+    try:
+        (ev, Y, status), wall, counts, unconv = run(
+            feastDiagonalization, op32,
+            vectors(guess_block(m0, FEAST["npackets"]), report,
+                    FEAST_LINEAR),
+            FEAST["nc"], "legendre", e_min, e_max, FEAST["eConv"],
+            FEAST["maxit"], writeOut=False)
+    finally:
+        bsr.bsr_matmat = b3
+    ev = np.asarray(ev)
+    outer = status["outerIter"] + 1
+    passes = report["matmats"]
+    require(len(ev) == m0 and len(Y) == m0, f"{tag}: the subspace shrank "
+            f"to {len(ev)}")
+    picks = [int(np.argmin(np.abs(ev - t))) for t in want]
+    require(len(set(picks)) == len(want), f"{tag}: levels {want} share "
+            f"Ritz values {ev}")
+    rels, ress = [], []
+    for k, exact in zip(picks, want):
+        v = Y[k].array
+        require(tuple(v.shape) == (op32.n,) and v.dtype == torch.float64
+                and bool(torch.isfinite(v).all()),
+                f"{tag}: bad Ritz vector {tuple(v.shape)} {v.dtype}")
+        r = bsr.bsr_matvec_plain(op64.dataT, op64.idx, v) - ev[k] * v
+        rels.append(abs(ev[k] - exact) / abs(exact))
+        ress.append(float(torch.linalg.vector_norm(r)
+                          / torch.linalg.vector_norm(v)) / h_norm)
+    b3_ms = results[("bsr_spmm f32", F_LANES)]["ms"]
+    print(f"[slice {tag}] window [{e_min:.6f}, {e_max:.6f}] holds levels "
+          f"{lo}..{hi}; Ritz {', '.join(f'{ev[k]:.8f}' for k in picks)} "
+          f"exact {', '.join(f'{e:.8f}' for e in want)}; rel err "
+          f"{', '.join(f'{e:.2e}' for e in rels)} (tol "
+          f"{EV_RTOL['highest']:.0e}); ||Hv-lv||/||H|| "
+          f"{', '.join(f'{e:.2e}' for e in ress)} (tol {RES_TOL:.0e})",
+          flush=True)
+    print(f"[slice {tag}] converged {status['isConverged']} after {outer} "
+          f"outer iterations (residual {status.get('residual', 0):.2e}); "
+          f"{report['solves']} lane solves, {report['iterations']} MINRES "
+          f"iterations ({unconv} warnings of unconverged lanes); {passes} "
+          f"passes of {F_LANES} lanes; B3 launches {counts['bsr_spmm']} "
+          f"by lanes {dict(sorted(collections.Counter(lanes).items()))}; "
+          f"wall {wall:.2f} s, {wall / passes * 1e3:.4f} ms/pass; B3 "
+          f"{b3_ms:.4f} ms at {F_LANES} lanes (phase 3), B3 share of wall "
+          f"{passes * b3_ms / 1e3 / wall:.3f}; phases: "
+          + ", ".join(f"{p} {t['seconds']:.2f} s ({t['calls']})"
+                      for p, t in status["timers"].items()), flush=True)
+    require(max(rels) <= EV_RTOL["highest"], f"{tag}: eigenvalue rel err "
+            f"{max(rels):.2e}")
+    require(max(ress) <= RES_TOL, f"{tag}: residual {max(ress):.2e}")
+    check_counts(tag, counts, {"bsr_spmm": passes + outer})
+    require(len(lanes) == counts["bsr_spmm"]
+            and lanes.count(F_LANES) == passes and lanes.count(m0) == outer,
+            f"{tag}: B3 lane counts {collections.Counter(lanes)}, expected "
+            f"{passes} x {F_LANES} and {outer} x {m0}")
+    walls[tag] = wall
+    for k, v in counts.items():
+        totals[k] += v
+    # one pass of (f) as the card sees it: 100 passes of the same lane
+    # stack (the window's nodes, one per m0 guesses), rtol 0
+    zs = _contour(e_min, e_max, FEAST["nc"], "legendre", 1.0)[3]
+    Bf = torch.as_tensor(guess_block(m0, FEAST["npackets"]),
+                         dtype=torch.float32, device=dev).repeat(nk, 1)
+    prof = profile_passes(lambda: gmres_splitc_batch(
+        op32, Bf, np.repeat(zs, m0), rtol=0.0, maxiter=100, escalate=0,
+        precond="jacobi"))
+    print(f"[slice {tag}] one pass of {F_LANES} lanes under torch.profiler: "
+          + json.dumps(prof), flush=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # (d): the dense headline task, f32 on the card
@@ -629,6 +793,143 @@ def main():
     report_line(tag, status, report, wall, unconv)
     require(abs(got - truth) < HEADLINE_TOL,
             f"{tag}: nearest {got} vs truth {truth}")
+    require(Y[0].array.is_cuda, f"{tag}: Ritz vectors left the card")
+    check_counts(tag, counts, {})
+    walls[tag] = wall
+
+    # (g): bench.py's FEAST window task (bench_feast), f32 on the card
+    fb = FEAST_BENCH
+    Hg, evg = known_spectrum_matrix(
+        fb["n"], eigenvalues=np.linspace(1, float(fb["n"]), fb["n"]),
+        seed=10)
+    truth = select_within_range(evg, fb["eMin"], fb["eMax"])[0]
+    Yg = np.linalg.qr(np.random.RandomState(3).rand(fb["n"], fb["m0"]))[0]
+    report = {}
+    gopts = {"linearSystemArgs": dict(FEAST_BENCH_LINEAR, report=report)}
+    tag = "(g) dense FEAST"
+    (ev, Y, status), wall, counts, unconv = run(
+        feastDiagonalization,
+        DenseOperator(np.asarray(Hg).astype(np.float32), device=dev),
+        [TorchVector(torch.as_tensor(Yg[:, i], dtype=torch.float32,
+                                     device=dev), gopts)
+         for i in range(fb["m0"])],
+        fb["nc"], "legendre", fb["eMin"], fb["eMax"], fb["eConv"],
+        fb["maxit"], writeOut=False)
+    got = np.sort(select_within_range(np.asarray(ev), fb["eMin"],
+                                      fb["eMax"])[0])
+    errs = [float(np.min(np.abs(got - t))) if len(got) else 9e9
+            for t in truth]
+    print(f"[slice {tag}] n={fb['n']} window [{fb['eMin']}, {fb['eMax']}]: "
+          f"found {len(got)} of {len(truth)}, max |err| {max(errs):.2e} "
+          f"(oracle {fb['oracle']:.0e}); {status['outerIter'] + 1} outer "
+          f"iterations, {report['solves']} lane solves, "
+          f"{report['iterations']} MINRES iterations, {report['matmats']} "
+          f"passes of {fb['nc'] * fb['m0']} lanes ({unconv} warnings); wall "
+          f"{wall:.2f} s, {wall / report['matmats'] * 1e3:.4f} ms/pass",
+          flush=True)
+    require(len(got) >= len(truth) and max(errs) < fb["oracle"],
+            f"{tag}: found {len(got)}, max err {max(errs):.2e}")
+    require(Y[0].array.is_cuda, f"{tag}: Ritz vectors left the card")
+    check_counts(tag, counts, {})
+    walls[tag] = wall
+
+    # (h): the CH3CN 6-mode cut of bench_sop: the grouped apply in f64 and
+    # f32, fused at 256 and not, against a numpy apply of the same groups
+    t0 = time.perf_counter()
+    ch = CH3CN
+    sops = {}
+    for name, dtype, fuse in (("f64", np.float64, None),
+                              ("f64 fused", np.float64, ch["fuse"]),
+                              ("f32", np.float32, None),
+                              ("f32 fused", np.float32, ch["fuse"])):
+        sops[name], spec, _ = ch3cn_operator(N=ch["N"], nModesCut=ch["cut"],
+                                             dtype=dtype, fuse=fuse,
+                                             device=dev)
+    opu = sops["f64"]
+    n = opu.shape[0]
+    groups = [(m, [f.cpu().numpy() for f in facs]) for m, facs in opu.groups]
+    idc = float(opu.id_coeff)
+    t_setup = time.perf_counter() - t0
+    x32 = np.random.RandomState(2).rand(n).astype(np.float32)
+    t0 = time.perf_counter()
+    y64 = np_sop_apply(groups, idc, opu.dims, x32, np.float64)
+    t_np64 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    y32h = np_sop_apply(groups, idc, opu.dims, x32, np.float32)
+    t_np32 = time.perf_counter() - t0
+    floor32 = float(np.max(np.abs(y32h.astype(np.float64) - y64)))
+    ymax = float(np.max(np.abs(y64)))
+    # useful flops: the physical-mode grouped apply (bench.py's count)
+    uflops = 2 * n + sum(2 * facs[0].shape[0] * f.shape[1] * n
+                         for _, facs in groups for f in facs)
+    print(f"[sop] CH3CN N={ch['N']} cut {ch['cut']}: n={n}, "
+          f"{len(spec.terms)} terms in {len(groups)} support groups, dims "
+          f"{opu.dims}, fused dims {sops['f64 fused'].dims} in "
+          f"{len(sops['f64 fused'].groups)} groups; setup {t_setup:.2f} s, "
+          f"numpy apply f64 {t_np64:.2f} s, f32 {t_np32:.2f} s; max |y| "
+          f"{ymax:.4e}, numpy f32 floor {floor32:.3e}", flush=True)
+    sop_ms = {}
+    for name, sop in sops.items():
+        dtype = torch.float64 if name.startswith("f64") else torch.float32
+        x = torch.as_tensor(x32, device=dev).to(dtype)
+        err = float(np.max(np.abs(sop.matvec(x).double().cpu().numpy()
+                                  - y64)))
+        sop_ms[name] = time_ms(lambda: sop.matvec(x), reps=10, warmup=2)
+        tol = 1e-10 * ymax if dtype == torch.float64 else 3 * floor32 + 1e-10
+        print(f"[sop] {name} apply: {sop_ms[name]:.3f} ms (CUDA events, "
+              f"median of 10), {uflops / sop_ms[name] / 1e6:.1f} useful "
+              f"GFLOP/s; max |y - y_numpy64| {err:.3e} (tol {tol:.3e})",
+              flush=True)
+        require(np.isfinite(err) and err <= tol,
+                f"(h) {name} apply error {err:.3e} > {tol:.3e}")
+    del y64, y32h
+    # Lanczos in f64 on the faster f64 form, sigma below the bottom
+    form = min(("f64", "f64 fused"), key=sop_ms.get)
+    lop = sops[form]
+    del sops
+    v = torch.as_tensor(np.random.RandomState(4).rand(n), device=dev)
+    for _ in range(30):                       # ||H|| from below
+        w = lop.matvec(v)
+        hn_sop = float(torch.linalg.vector_norm(w)
+                       / torch.linalg.vector_norm(v))
+        v = w / torch.linalg.vector_norm(w)
+    zpve = 0.5 * sum(spec.parameters[f"w{i + 1}"] for i in range(ch["cut"]))
+    sig_h = zpve - float(unit2au(500.0, "cm-1"))
+    G = 1e-3 * np.random.RandomState(5).standard_normal(
+        (len(ch["guesses"]), n))
+    for row, excited in zip(G, ch["guesses"]):
+        # one quantum in each listed mode: the product basis is row-major
+        row[sum(ch["N"] ** (ch["cut"] - 1 - d) for d in excited)] += 1.0
+    G = np.linalg.qr(G.T)[0].T
+    report = {}
+    hopts = {"linearSystemArgs": dict(CH3CN_LINEAR, report=report)}
+    tag = "(h) CH3CN Lanczos"
+    (ev, Y, status), wall, counts, unconv = run(
+        inexactLanczosDiagonalization, lop,
+        [TorchVector(torch.as_tensor(g, device=dev), hopts) for g in G],
+        sig_h, writeOut=False, **CH3CN_LANCZOS)
+    ev = np.asarray(ev)
+    picks = np.argsort(ev)[:len(G)]
+    ress = []
+    for k in picks:
+        vk = Y[k].array
+        require(vk.dtype == torch.float64 and bool(torch.isfinite(vk).all()),
+                f"{tag}: bad Ritz vector {vk.dtype}")
+        r = lop.matvec(vk) - ev[k] * vk
+        ress.append(float(torch.linalg.vector_norm(r)
+                          / torch.linalg.vector_norm(vk)) / hn_sop)
+    cm = [float(au2unit(ev[k], "cm-1")) for k in picks]
+    print(f"[sop {tag}] N={ch['N']} ({form}), nBlock {len(G)}, sigma "
+          f"{float(au2unit(sig_h, 'cm-1')):.3f} cm-1 (harmonic zpve - 500); "
+          f"lowest Ritz {', '.join(f'{e:.4f}' for e in cm)} cm-1; "
+          f"||Hv-lv||/||H|| {', '.join(f'{e:.2e}' for e in ress)} "
+          f"(tol {RES_TOL:.0e}, ||H|| >= {hn_sop:.4e}); converged "
+          f"{status['isConverged']} after {status['cumIter']} Krylov steps, "
+          f"{report['solves']} solves, {report['iterations']} MINRES "
+          f"iterations, {report.get('matmats', 0)} lane-stack and "
+          f"{report.get('matvecs', 0)} single applies ({unconv} warnings); "
+          f"wall {wall:.2f} s", flush=True)
+    require(max(ress) <= RES_TOL, f"{tag}: residual {max(ress):.2e}")
     require(Y[0].array.is_cuda, f"{tag}: Ritz vectors left the card")
     check_counts(tag, counts, {})
     walls[tag] = wall

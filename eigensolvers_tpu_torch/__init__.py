@@ -8,7 +8,8 @@ files as the JAX package ``eigensolvers_tpu`` beside it.
 Design:
   * compute path: PyTorch tensors on an explicit device; the block-sparse
     SpMV runs hand-written CUDA kernels (``csrc/``) on the card and plain
-    PyTorch on the CPU;
+    PyTorch on the CPU; sum-of-products operators (the ``.op`` molecule
+    models) apply as mode-wise einsum contractions;
   * operators are ``torch.nn.Module``s holding their arrays as buffers;
   * no global switches: dtypes are explicit (float64 where the 1e-14
     lindep contract needs it), and fp32 products must run with TF32 off
@@ -18,9 +19,13 @@ This package never imports jax or ``eigensolvers_tpu``.
 """
 
 from .vectors.dense import TorchVector
-from .ops.operators import DenseOperator, DiagonalOperator, as_operator
+from .ops.operators import (DenseOperator, DiagonalOperator,
+                            GroupedSoPOperator, SumOfProductOperator,
+                            as_operator)
 from .ops.sparse import BSROperator
+from .solvers.feast import feastDiagonalization
 from .solvers.lanczos import inexactLanczosDiagonalization
+from .utils.quadrature import quadraturePointsWeights
 from .utils.subspace import (
     basisTransformation,
     calculateTarget,
@@ -41,8 +46,12 @@ __all__ = [
     "BSROperator",
     "DenseOperator",
     "DiagonalOperator",
+    "GroupedSoPOperator",
+    "SumOfProductOperator",
     "as_operator",
+    "feastDiagonalization",
     "inexactLanczosDiagonalization",
+    "quadraturePointsWeights",
     "basisTransformation",
     "calculateTarget",
     "diagonalizeHamiltonian",

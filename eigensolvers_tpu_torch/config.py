@@ -167,6 +167,8 @@ class FeastConfig:
     batchQuadratureSolves: bool = True
 
     def run(self, A, Y, status=None):
-        raise NotImplementedError(
-            "FEAST is not ported to the torch package yet "
-            "(ROADMAP Queue A, 'FEAST')")
+        from .solvers.feast import feastDiagonalization
+        kw = asdict(self)
+        args = [kw.pop(k) for k in ("nc", "quad", "eMin", "eMax", "eConv",
+                                    "maxit")]
+        return feastDiagonalization(A, Y, *args, status=status, **kw)

@@ -7,7 +7,8 @@ The JAX package's operators hold device arrays; pull them out with numpy
 
 from __future__ import annotations
 
-from .ops.operators import AbstractOperator, DenseOperator
+from .ops.operators import (AbstractOperator, DenseOperator,
+                            GroupedSoPOperator, SumOfProductOperator)
 from .ops.sparse import BSROperator
 
 
@@ -18,7 +19,13 @@ def operator_from_arrays(arrays: dict, device) -> AbstractOperator:
     * ``BSROperator``: ``{"dataT": np.asarray(op.dataT), "idx":
       np.asarray(op.idx), "n": op.n, "precision": op.precision}`` — the
       transposed block layout is carried as stored, not re-transposed;
-    * ``DenseOperator``: ``{"mat": np.asarray(op.mat), "precision": ...}``.
+    * ``DenseOperator``: ``{"mat": np.asarray(op.mat), "precision": ...}``;
+    * ``SumOfProductOperator``: ``{"factors": [np.asarray(f) for f in
+      op.factors], "term_chunk": op.term_chunk, "precision": ...}`` (the
+      factors as stored, zero terms of a chunked operator included);
+    * ``GroupedSoPOperator``: ``{"dims": op.dims, "groups": [(modes,
+      [np.asarray(f) for f in facs]) for modes, facs in op.groups],
+      "id_coeff": np.asarray(op.id_coeff), "precision": ...}``.
 
     ``precision`` may be a name or a ``jax.lax.Precision`` value (its name
     is read; no jax import happens here)."""
@@ -29,5 +36,14 @@ def operator_from_arrays(arrays: dict, device) -> AbstractOperator:
     if "mat" in arrays:
         return DenseOperator(arrays["mat"], precision=precision,
                              device=device)
+    if "factors" in arrays:
+        return SumOfProductOperator(arrays["factors"],
+                                    term_chunk=arrays.get("term_chunk"),
+                                    precision=precision, device=device)
+    if "groups" in arrays:
+        return GroupedSoPOperator(arrays["dims"], arrays["groups"],
+                                  id_coeff=arrays["id_coeff"],
+                                  precision=precision, device=device)
     raise ValueError(f"no operator arrays in keys {sorted(arrays)}; "
-                     f"expected 'dataT'/'idx'/'n' or 'mat'")
+                     f"expected 'dataT'/'idx'/'n', 'mat', 'factors' or "
+                     f"'dims'/'groups'/'id_coeff'")

@@ -7,6 +7,9 @@ buffers, so ``.to(device)`` moves them and ``state_dict()`` saves them.
 
 * :class:`DenseOperator` — explicit (n, n) matrix; matvec is a GEMV.
 * :class:`DiagonalOperator` — diagonal matrix; matvec is elementwise.
+* :class:`SumOfProductOperator`, :class:`GroupedSoPOperator` —
+  H = Σ_s c_s ⊗_d A^{(d,s)} (the ``.op`` molecule models); matvec is a
+  sequence of mode-wise batched contractions, never the full matrix.
 * :class:`CallableOperator` — a matvec callable with a shape (the analogue
   of a scipy ``LinearOperator``, which ``as_operator`` wraps in one).
 * :class:`PaddedOperator` — an operator zero-embedded into a larger space.
@@ -20,6 +23,9 @@ lane apply of the transpose.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -181,6 +187,373 @@ class DiagonalOperator(AbstractOperator):
 
     def diagonal(self):
         return self.diag
+
+
+def _apply_terms(factor_batch, modes, xt, dims):
+    """sum_s (⊗_{d in modes} f_d[s]) applied to xt (shape ``dims``), the
+    identity on the other modes: for each active mode one batched
+    contraction over the term axis s (``einsum`` on the (S, pre, n_d,
+    post) view, which PyTorch runs as one batched matmul), then the term
+    sum.  The (S, n) intermediate is what ``term_chunk`` bounds."""
+    S = factor_batch[0].shape[0]
+    xb = xt.expand((S,) + tuple(dims))
+    for mode, f in zip(modes, factor_batch):
+        dt = torch.promote_types(f.dtype, xb.dtype)
+        f = f.to(dt)
+        require_true_fp32(f)
+        pre = int(np.prod(dims[:mode]))
+        post = int(np.prod(dims[mode + 1:]))
+        xb = torch.einsum("sij,spjq->spiq", f,
+                          xb.reshape(S, pre, dims[mode], post).to(dt))
+    return xb.reshape((S,) + tuple(dims)).sum(dim=0)
+
+
+def _factor_diagonals(factor_batch):
+    """sum_s ⊗_d diag(f_d[s]) as one (prod n_d,) vector, never H itself."""
+    diags = [torch.diagonal(f, dim1=1, dim2=2) for f in factor_batch]
+    acc = diags[0]                                        # (S, n_0)
+    for dg in diags[1:]:
+        acc = (acc[:, :, None] * dg[:, None, :]).reshape(acc.shape[0], -1)
+    return acc.sum(dim=0)
+
+
+class SumOfProductOperator(AbstractOperator):
+    """H = Σ_{s<nSum} ⊗_{d<nDim} A^{(d,s)}, with coefficients folded into the
+    first non-identity factor of each term (the JAX package's
+    ``SumOfProductOperator``).
+
+    Stored as per-mode stacked factor tensors ``factors[d]`` of shape
+    (nSum, n_d, n_d), so a matvec is, for each mode d, one batched
+    contraction over the term axis (PyTorch einsum, cuBLAS on the card;
+    the JAX package left it to XLA, so no hand-written kernel).  Memory:
+    the batched intermediate is (nSum, n); ``term_chunk`` bounds it to
+    (term_chunk, n) by looping over chunks of terms."""
+
+    def __init__(self, factors, dims=None, term_chunk: Optional[int] = None,
+                 precision="highest", device=None):
+        """:param factors: list over modes d of arrays (nSum, n_d, n_d).
+        :param term_chunk: if set, the matvec loops over the term axis in
+            chunks of this size.  Terms are zero-padded to a multiple of
+            the chunk size at construction (zero terms contribute nothing).
+        :param precision: operator precision name (see
+            :func:`resolve_precision`; every name applies at true fp32 or
+            better on the card).
+        :param device: where numpy factors go (default: the card)."""
+        super().__init__()
+        factors = [as_tensor(f, device) for f in factors]
+        if not factors:
+            raise ValueError("a sum of products needs at least one mode")
+        nSum = factors[0].shape[0]
+        for f in factors:
+            if f.ndim != 3 or f.shape[0] != nSum or f.shape[1] != f.shape[2]:
+                raise ValueError(f"bad factor shape {tuple(f.shape)}")
+        self._true_nSum = nSum
+        if term_chunk is not None and term_chunk < nSum:
+            pad = (-nSum) % term_chunk
+            if pad:
+                factors = [torch.cat([f, f.new_zeros((pad,) + f.shape[1:])])
+                           for f in factors]
+        else:
+            term_chunk = None
+        self.term_chunk = term_chunk
+        self.precision = resolve_precision(precision)
+        for d, f in enumerate(factors):
+            self.register_buffer(f"factor{d}", f)
+        self._nDim = len(factors)
+
+    @classmethod
+    def from_terms(cls, nDim: int, dims, terms, dtype=None,
+                   term_chunk: Optional[int] = None, device=None):
+        """Build from a list of terms ``(coeff, {mode_index: matrix})``;
+        unspecified modes get identity factors, the coefficient is folded into
+        the first mode's factor."""
+        dtype = dtype or np.float64
+        stacked = []
+        for d in range(nDim):
+            eye = np.eye(dims[d], dtype=dtype)
+            mats = []
+            for (coeff, facs) in terms:
+                m = np.asarray(facs.get(d, eye), dtype=dtype)
+                if d == min(facs.keys(), default=0):
+                    m = m * coeff
+                mats.append(m)
+            stacked.append(np.stack(mats))
+        return cls(stacked, term_chunk=term_chunk, device=device)
+
+    @property
+    def factors(self):
+        return [getattr(self, f"factor{d}") for d in range(self._nDim)]
+
+    @property
+    def nDim(self):
+        return self._nDim
+
+    @property
+    def nSum(self):
+        return self.factor0.shape[0]
+
+    @property
+    def dims(self):
+        return tuple(int(f.shape[1]) for f in self.factors)
+
+    @property
+    def shape(self):
+        n = int(np.prod(self.dims))
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return functools.reduce(torch.promote_types,
+                                [f.dtype for f in self.factors])
+
+    def matvec(self, x):
+        dims = self.dims
+        xt = x.reshape(dims)
+        modes = range(self._nDim)
+        if self.term_chunk is None:
+            y = _apply_terms(self.factors, modes, xt, dims)
+        else:
+            y = None
+            for c in range(0, self.nSum, self.term_chunk):
+                part = _apply_terms([f[c:c + self.term_chunk]
+                                     for f in self.factors], modes, xt, dims)
+                y = part if y is None else y + part
+        return y.reshape(x.shape)
+
+    def diagonal(self):
+        """diag(⊗_d A_d) = ⊗_d diag(A_d), summed over terms — one (n,)
+        vector (same footprint as a state), never materializing H."""
+        return _factor_diagonals(self.factors)
+
+    def to_dense(self):
+        """H as a dense matrix via Kronecker products (small oracle
+        problems only)."""
+        fs = [f.cpu().numpy() for f in self.factors]
+        n = self.shape[0]
+        out = np.zeros((n, n), dtype=np.result_type(*fs))
+        for s in range(self.nSum):
+            out += functools.reduce(np.kron, [f[s] for f in fs])
+        return torch.as_tensor(out, device=self.factor0.device)
+
+
+class GroupedSoPOperator(AbstractOperator):
+    """Sum-of-products operator with terms grouped by mode support (the JAX
+    package's ``GroupedSoPOperator``).
+
+    Physical SoP Hamiltonians touch only a few modes per term (the MCTDH
+    .op models: 2-4 active of 12 modes); applying stacked identity factors
+    for the inactive modes (as :class:`SumOfProductOperator` does) wastes
+    most of the flops.  Here terms sharing the same active-mode set form
+    one batched group, a matvec contracts only the active modes of each
+    group, and pure-identity terms collapse to one scalar.
+
+    ``factors`` (property) materializes the full identity-padded stacked
+    form for consumers that need it."""
+
+    def __init__(self, dims, groups, id_coeff=0.0, precision="highest",
+                 device=None):
+        """:param groups: list of (modes tuple, [per-active-mode arrays
+        (S_g, n_d, n_d)]); :param id_coeff: summed coefficient of the pure
+        identity terms; :param precision: operator precision name (see
+        :func:`resolve_precision`); :param device: where numpy arrays go
+        (default: the card)."""
+        super().__init__()
+        self._dims = tuple(int(d) for d in dims)
+        self._modes = []
+        for gi, (modes, facs) in enumerate(groups):
+            self._modes.append(tuple(int(m) for m in modes))
+            for j, f in enumerate(facs):
+                self.register_buffer(f"g{gi}f{j}", as_tensor(f, device))
+        if device is None and self._modes:
+            device = self.g0f0.device
+        self.register_buffer("id_coeff", as_tensor(id_coeff, device))
+        self.precision = resolve_precision(precision)
+
+    @classmethod
+    def from_terms(cls, nDim: int, dims, terms, dtype=None, device=None):
+        """Same term format as :meth:`SumOfProductOperator.from_terms`."""
+        dtype = dtype or np.float64
+        by_support = {}
+        id_coeff = 0.0
+        for coeff, facs in terms:
+            modes = tuple(sorted(facs.keys()))
+            if not modes:
+                id_coeff += coeff
+                continue
+            by_support.setdefault(modes, []).append((coeff, facs))
+        groups = []
+        for modes, group_terms in sorted(by_support.items()):
+            stacked = []
+            for j, d in enumerate(modes):
+                mats = []
+                for coeff, facs in group_terms:
+                    m = np.asarray(facs[d], dtype=dtype)
+                    if j == 0:
+                        m = m * coeff
+                    mats.append(m)
+                stacked.append(np.stack(mats))
+            if len(modes) == 1:
+                # single-mode group: Σ_s c_s A_s is ONE matrix — presumming
+                # cuts the flops and the (S, n) intermediate by S
+                stacked = [stacked[0].sum(axis=0, keepdims=True)]
+            groups.append((modes, stacked))
+        return cls(dims, groups, id_coeff=np.asarray(id_coeff, dtype),
+                   device=device)
+
+    @property
+    def groups(self):
+        return [(modes, [getattr(self, f"g{gi}f{j}")
+                         for j in range(len(modes))])
+                for gi, modes in enumerate(self._modes)]
+
+    @property
+    def dims(self):
+        return self._dims
+
+    @property
+    def nDim(self):
+        return len(self._dims)
+
+    @property
+    def nSum(self):
+        return sum(facs[0].shape[0] for _, facs in self.groups) + 1
+
+    @property
+    def shape(self):
+        n = int(np.prod(self._dims))
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return functools.reduce(
+            torch.promote_types,
+            [f.dtype for _, facs in self.groups for f in facs],
+            self.id_coeff.dtype)
+
+    @property
+    def factors(self):
+        """Full identity-padded stacked factors; the pure-identity
+        coefficient becomes one extra term."""
+        out = []
+        for d, n in enumerate(self._dims):
+            eye = np.eye(n)
+            mats = []
+            for modes, facs in self.groups:
+                S_g = facs[0].shape[0]
+                if d in modes:
+                    mats.append(facs[modes.index(d)].cpu().numpy())
+                else:
+                    mats.append(np.broadcast_to(eye, (S_g, n, n)))
+            idc = np.broadcast_to(eye, (1, n, n)).copy()
+            if d == 0:
+                idc = idc * self.id_coeff.cpu().numpy()
+            mats.append(idc)
+            out.append(torch.as_tensor(np.concatenate(mats),
+                                       device=self.id_coeff.device))
+        return out
+
+    def matvec(self, x):
+        """Per group: batched mode-wise contractions of its active modes,
+        trailing term sum; plus the identity terms' scalar."""
+        dims = self._dims
+        xt = x.reshape(dims)
+        y = self.id_coeff * xt
+        for modes, facs in self.groups:
+            y = y + _apply_terms(facs, modes, xt, dims)
+        return y.reshape(x.shape)
+
+    def diagonal(self):
+        """Per group: the Kronecker product of the active-mode factor
+        diagonals, broadcast over the inactive modes; identity terms add
+        id_coeff."""
+        dims = self._dims
+        out = torch.full(dims, float(self.id_coeff), dtype=self.dtype,
+                         device=self.id_coeff.device)
+        for modes, facs in self.groups:
+            shape = [dims[d] if d in modes else 1 for d in range(len(dims))]
+            out = out + _factor_diagonals(facs).reshape(shape)
+        return out.reshape(-1)
+
+    def to_dense(self):
+        n = self.shape[0]
+        groups = [(modes, [f.cpu().numpy() for f in facs])
+                  for modes, facs in self.groups]
+        dt = np.result_type(*(f.dtype for _, facs in groups for f in facs)) \
+            if groups else np.float64
+        out = self.id_coeff.cpu().numpy().astype(dt) * np.eye(n, dtype=dt)
+        for modes, facs in groups:
+            for s in range(facs[0].shape[0]):
+                mats = [facs[modes.index(d)][s] if d in modes
+                        else np.eye(nd, dtype=dt)
+                        for d, nd in enumerate(self._dims)]
+                out = out + functools.reduce(np.kron, mats)
+        return torch.as_tensor(out, device=self.id_coeff.device)
+
+
+def fuse_sop_terms(dims, terms, target: int = 256):
+    """Coarsen a sum-of-products term list by fusing consecutive modes into
+    super-modes of dimension ~``target`` (the JAX package's
+    ``fuse_sop_terms``, same semantics): each term's factor on a super-mode
+    is the Kronecker product of its per-mode factors (identity for inactive
+    modes *within an active super-mode*; super-modes with no active mode
+    stay absent, so the grouped apply's flop saving survives).  More flops
+    per contraction (2*n*196 against 2*n*14 for CH3CN's 14x14 pairs) for
+    fewer, wider contractions.  The JAX package chose 256 for the TPU's
+    (8, 128) tiles; on the H100 the choice is measured (ROADMAP,
+    "Re-decide on the H100").
+
+    :param dims: per-mode dimensions
+    :param terms: list of (coeff, {mode_index: matrix})
+    :param target: aim for fused dimensions <= max(target, largest single
+        mode)
+    :returns: (fused_dims, fused_terms, partition) — partition is the list
+        of original-mode index groups, for callers that need to map back
+    """
+    parts: List[List[int]] = []
+    cur: List[int] = []
+    prod = 1
+    for d, nd in enumerate(dims):
+        if cur and prod * int(nd) > target:
+            parts.append(cur)
+            cur, prod = [d], int(nd)
+        else:
+            cur.append(d)
+            prod *= int(nd)
+    if cur:
+        parts.append(cur)
+    fused_dims, fused_terms = regroup_sop_terms(dims, terms, parts)
+    return fused_dims, fused_terms, parts
+
+
+def regroup_sop_terms(dims, terms, parts):
+    """Regroup SoP terms onto an ARBITRARY partition of the modes.
+
+    Generalizes the consecutive fusing of :func:`fuse_sop_terms`: ``parts``
+    is a list of original-mode index groups, one per new (super-)mode, in
+    any order; a group's factor is the Kronecker product of its members'
+    factors (identity for inactive members).  An EMPTY group yields a
+    dimension-1 virtual mode that no term touches (tree layouts with
+    coordinate-free internal nodes).
+
+    :returns: (new_dims, new_terms)
+    """
+    seen = sorted(d for p in parts for d in p)
+    if seen != list(range(len(dims))):
+        raise ValueError(
+            f"parts must partition modes 0..{len(dims) - 1}, got {parts}")
+    new_dims = [int(np.prod([dims[d] for d in p])) if p else 1
+                for p in parts]
+    new_terms = []
+    for coeff, facs in terms:
+        new_facs = {}
+        for pi, p in enumerate(parts):
+            if not any(d in facs for d in p):
+                continue
+            mats = [np.asarray(facs[d]) if d in facs else np.eye(dims[d])
+                    for d in p]
+            new_facs[pi] = functools.reduce(np.kron, mats)
+        new_terms.append((coeff, new_facs))
+    return new_dims, new_terms
 
 
 class CallableOperator(AbstractOperator):

@@ -23,8 +23,14 @@ Execution paths, chosen by the device of the tensors alone:
   ``_bsr_matmat_xla``; at "high" on f32 data its bf16x3 form
   ``bsr_spmm_split`` (``csrc/bsr_spmm_split.cu``), so a lane sees the
   same operator as a single vector;
+* complex vectors: a complex x or lane stack (m, n) is applied as its real
+  and imaginary parts stacked as 2m real lanes, one B3 launch on the real
+  blocks, and recombined; the blocks are never promoted to complex.
+  Complex blocks (which the JAX package also takes) are kept as their real
+  and imaginary block sets, one B3 launch each;
 * CPU tensor: the plain PyTorch versions (gather + einsum), which are also
-  the references the kernels are tested against.
+  the references the kernels are tested against.  Complex data takes the
+  same real-lane route there.
 
 A CUDA tensor reaches its kernel or raises; nothing falls back to the plain
 version.
@@ -95,6 +101,13 @@ class BSROperator(AbstractOperator):
         else:
             self.register_buffer("dataT_hi", None)
             self.register_buffer("dataT_lo", None)
+        if dataT.is_complex():
+            # the kernels take real blocks: keep both real block sets
+            self.register_buffer("dataT_re", dataT.real.contiguous())
+            self.register_buffer("dataT_im", dataT.imag.contiguous())
+        else:
+            self.register_buffer("dataT_re", None)
+            self.register_buffer("dataT_im", None)
 
     # -- properties ---------------------------------------------------------
     @property
@@ -175,6 +188,8 @@ class BSROperator(AbstractOperator):
 
     def matvec(self, x):
         flat = x.reshape(-1)
+        if flat.is_complex() or self.dtype.is_complex:
+            return self.matvec_lanes(flat[None])[0].reshape(x.shape)
         dtype = torch.promote_types(self.dtype, flat.dtype)
         xp = self._pad(flat, dtype)
         if self.dataT_hi is not None and dtype == torch.float32:
@@ -186,15 +201,32 @@ class BSROperator(AbstractOperator):
     def matvec_lanes(self, X):
         """Apply to each row of the lane stack X (m, n) -> (m, n) in one
         multi-vector product: the block data is read once for all m rows.
-        At "high" on f32 data this is the bf16x3 product, like ``matvec``."""
+        At "high" on f32 data this is the bf16x3 product, like ``matvec``.
+        Complex data goes through real lanes (see the module docstring)."""
         if X.ndim != 2 or X.shape[1] != self.n:
             raise ValueError(f"bad lane stack shape {tuple(X.shape)}")
-        dtype = torch.promote_types(self.dtype, X.dtype)
+        if not (X.is_complex() or self.dtype.is_complex):
+            return self._real_lanes(self.dataT, X)
+        m = X.shape[0]
+        lanes = torch.cat([X.real, X.imag]) if X.is_complex() else X
+        if not self.dtype.is_complex:
+            Y = self._real_lanes(self.dataT, lanes)      # (2m, n), one launch
+            return torch.complex(Y[:m], Y[m:])
+        Yr = self._real_lanes(self.dataT_re, lanes)
+        Yi = self._real_lanes(self.dataT_im, lanes)
+        if X.is_complex():      # (Ar + i Ai)(xr + i xi)
+            return torch.complex(Yr[:m] - Yi[m:], Yr[m:] + Yi[:m])
+        return torch.complex(Yr, Yi)
+
+    def _real_lanes(self, blocks, X):
+        """One multi-vector product of the real block set ``blocks`` with
+        the real lane stack X (m, n): B3, or its split form at "high"."""
+        dtype = torch.promote_types(blocks.dtype, X.dtype)
         Xp = self._pad(X, dtype)                     # (m, npad)
         if self.dataT_hi is not None and dtype == torch.float32:
             Yp = bsr_matmat_split(self.dataT_hi, self.dataT_lo, self.idx, Xp)
         else:
-            Yp = bsr_matmat(self.dataT.to(dtype), self.idx, Xp)
+            Yp = bsr_matmat(blocks.to(dtype), self.idx, Xp)
         return Yp[:, :self.n]
 
     def diagonal(self):

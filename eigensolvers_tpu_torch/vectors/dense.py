@@ -9,7 +9,9 @@ and with the JAX package's ``JaxVector``:
 * shifted solves run the solvers of
   :mod:`eigensolvers_tpu_torch.ops.linear_solvers` on the vector's device
   (MINRES, GMRES or exact), with a batched lane-stack path
-  (:meth:`TorchVector.solveBatch`) for block Lanczos.
+  (:meth:`TorchVector.solveBatch`) for block Lanczos, and the
+  split-complex lane path (:meth:`TorchVector.solveBatchSplit`) with the
+  quadrature sums for FEAST's contour solves.
 
 All products run at true fp32/fp64 (TF32 refused, see
 :func:`~eigensolvers_tpu_torch.ops.operators.require_true_fp32`): the
@@ -299,6 +301,92 @@ class TorchVector(AbstractVector):
         opMat = np.append(opMat, col[:, None], axis=1)
         return opMat
 
+    # -- FEAST quadrature ---------------------------------------------------
+    @classmethod
+    def _accumulate_quadrature(cls, sols, mults, m0: int):
+        """FEAST: Q[i] = Re sum_k mults[k] * sols[k*m0 + i], one
+        contraction.  The complex128 multipliers promote the sum to f64 on
+        purpose: the filtered subspace is carried in f64 (see
+        :meth:`_accumulate_quadrature_split`)."""
+        S = torch.stack([s.array.reshape(-1) for s in sols])
+        m = torch.as_tensor(np.asarray(mults, np.complex128), device=S.device)
+        out = torch.real(torch.tensordot(
+            m, S.to(m.dtype).reshape(len(mults), m0, -1), dims=([0], [0])))
+        shape = sols[0].array.shape
+        return [cls(out[i].reshape(shape), sols[0].options) for i in range(m0)]
+
+    @classmethod
+    def _accumulate_quadrature_split(cls, sols, mults, m0: int, options=None):
+        """FEAST after split-complex solves: ``sols`` are raw (2, n)
+        (Re, Im) tensors, and out[i] = sum_k Re(mult_k) Re(x_ki) -
+        Im(mult_k) Im(x_ki) in real arithmetic.  The f64 multipliers
+        DELIBERATELY promote the subspace to f64 (mixed precision, shared
+        with the fused loop, solvers/fast_feast.py): the f32 contour solves
+        act as inexact-FEAST noise that the f64 Rayleigh-Ritz step averages
+        down; an all-f32 outer iteration stalls at ~1e-3 eigenvalue error."""
+        S = torch.stack(sols).to(torch.float64)            # (nk*m0, 2, n)
+        S = S.reshape(len(mults), m0, 2, -1)
+        mults = np.asarray(mults)
+        mre = torch.as_tensor(mults.real, dtype=torch.float64, device=S.device)
+        mim = torch.as_tensor(mults.imag, dtype=torch.float64, device=S.device)
+        out = (torch.tensordot(mre, S[:, :, 0], dims=([0], [0]))
+               - torch.tensordot(mim, S[:, :, 1], dims=([0], [0])))
+        return [cls(out[i], options) for i in range(m0)]
+
+    @classmethod
+    def solveBatchSplit(cls, H, bs, sigmas, x0s=None, reverseGF: bool = False,
+                        rtol_scale: float = 1.0, report=None):
+        """Batched complex-shifted solves of a REAL operator in real
+        arithmetic (split-complex J-symmetrized MINRES, FEAST's contour
+        solves): one lane per (sigma_k, b_k), every MINRES pass one apply
+        of the whole lane stack.  ``x0s`` warm starts: a list of vectors
+        with real (n,) arrays, or a raw (nlanes, 2, n) split-guess stack
+        (Re, Im — FEAST's Ritz warm starts).  ``linearSystemArgs
+        ["batchChunk"]`` bounds the simultaneous lanes; chunks run one
+        after another.  A caller's ``report`` accumulates "iterations", and
+        the ``linearSystemArgs["report"]`` dict "solves", "iterations" and
+        "matmats" (stack applies).  A lane that does not converge raises,
+        or warns under ``errorOnNonConvergence=False``.  Returns raw (2, n)
+        tensors (Re x, Im x), one per lane."""
+        opts = bs[0].options["linearSystemArgs"]
+        chunk = opts.get("batchChunk")
+        if chunk and len(bs) > chunk:
+            out = []
+            for i in range(0, len(bs), chunk):
+                out.extend(cls.solveBatchSplit(
+                    H, bs[i:i + chunk], sigmas[i:i + chunk],
+                    x0s=None if x0s is None else x0s[i:i + chunk],
+                    reverseGF=reverseGF, rtol_scale=rtol_scale,
+                    report=report))
+            return out
+        op = cls._as_operator(H, bs[0])
+        B = torch.stack([b.array.reshape(-1) for b in bs])
+        if B.is_complex():
+            raise ValueError("split-complex solves need real right-hand sides")
+        if x0s is None:
+            X0 = None
+        elif isinstance(x0s, (list, tuple)):
+            X0 = torch.stack([x.array.reshape(-1) for x in x0s])
+        else:
+            X0 = as_tensor(x0s, B.device)
+        res = ls.gmres_splitc_batch(
+            op, B, list(sigmas), x0s=X0,
+            rtol=opts["linear_tol"] * rtol_scale,
+            atol=opts["linear_atol"] * rtol_scale,
+            restart=opts["gmresRestart"], maxiter=opts["linearIter"],
+            reverseGF=reverseGF, precond=opts.get("preconditioner"),
+            escalate=int(opts.get("escalateIter", 3)))
+        cls._account(opts, report, "minres", res, len(bs))
+        for k, ok in enumerate(res.converged):
+            if not ok:
+                msg = (f"Batched split solver lane {k} did not converge: "
+                       f"residual {float(res.resnorm[k]):.3e} after "
+                       f"{int(res.iterations[k])} iterations")
+                if opts.get("errorOnNonConvergence", True):
+                    raise RuntimeError(msg)
+                warnings.warn(msg)
+        return list(res.x)
+
     # -- linear solves ------------------------------------------------------
     @staticmethod
     def _solve_dtype(op, sigma, *vec_dtypes) -> torch.dtype:
@@ -329,6 +417,32 @@ class TorchVector(AbstractVector):
         if solver == "gmres" and hermitian:
             solver = "minres"
         return solver, opts
+
+    @classmethod
+    def _split_single(cls, op, b, sigma, x0, opts, reverseGF):
+        """One complex-shifted solve of a real symmetric operator via the
+        J-symmetrized real-block MINRES (one lane of
+        :func:`~eigensolvers_tpu_torch.ops.linear_solvers.gmres_splitc_batch`),
+        recombined to a complex result: restarted GMRES stagnates on these
+        spectra, the split MINRES has conditioning ~|sigma - lam|."""
+        B = b.array.reshape(1, -1)
+        X0 = None if x0 is None else torch.real(x0.array).reshape(1, -1)
+        res = ls.gmres_splitc_batch(
+            op, B, [complex(sigma)], x0s=X0,
+            rtol=opts["linear_tol"], atol=opts["linear_atol"],
+            maxiter=opts["linearIter"], reverseGF=reverseGF,
+            precond=opts.get("preconditioner"),
+            escalate=int(opts.get("escalateIter", 3)))
+        cls._account(opts, None, "minres", res, 1)
+        if not res.converged[0]:
+            msg = (f"Iterative solver splitc-minres did not converge: "
+                   f"residual {float(res.resnorm[0]):.3e} after "
+                   f"{int(res.iterations[0])} iterations")
+            if opts.get("errorOnNonConvergence", True):
+                raise RuntimeError(msg)
+            warnings.warn(msg)
+        x = torch.complex(res.x[0, 0], res.x[0, 1])
+        return cls(x.reshape(b.array.shape), b.options)
 
     @classmethod
     def _want_split(cls, op, b, sigma, opts):
@@ -371,11 +485,7 @@ class TorchVector(AbstractVector):
         solver, opts = cls._solve_opts(b, sigma, opType)
         op = cls._as_operator(H, b)
         if cls._want_split(op, b, sigma, opts):
-            raise NotImplementedError(
-                "complex-shifted solves of a real operator take the "
-                "split-complex path, which is not ported yet (ROADMAP "
-                "Queue A, 'FEAST'); set linearSystemArgs['splitComplex'] "
-                "= False for complex GMRES")
+            return cls._split_single(op, b, sigma, x0, opts, reverseGF)
         dtype = cls._solve_dtype(op, sigma, b.dtype)
         barr = b.array.reshape(-1).to(dtype)
         x0arr = None if x0 is None else x0.array.reshape(-1).to(dtype)

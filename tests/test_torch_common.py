@@ -87,9 +87,19 @@ def test_resolve_precision_rejects_unknown():
         resolve_precision("tf32")
 
 
-def test_feast_config_run_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*FEAST"):
-        FeastConfig().run(None, None)
+def test_feast_config_run_names_its_roadmap_item(monkeypatch):
+    """FeastConfig.run (once a ROADMAP item) drives feastDiagonalization
+    with its fields."""
+    from eigensolvers_tpu_torch.solvers import feast
+    seen = {}
+    monkeypatch.setattr(feast, "feastDiagonalization",
+                        lambda *a, **k: seen.update(args=a, kw=k) or "ran")
+    cfg = FeastConfig(nc=6, eMin=-1.0, eMax=2.0, maxit=3, writeOut=False)
+    assert cfg.run("A", ["Y"], status={"s": 1}) == "ran"
+    assert seen["args"] == ("A", ["Y"], 6, "legendre", -1.0, 2.0, 1e-6, 3)
+    assert seen["kw"]["status"] == {"s": 1}
+    assert seen["kw"]["writeOut"] is False
+    assert seen["kw"]["batchQuadratureSolves"] is True
 
 
 def test_units_match_reference():

@@ -309,3 +309,37 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(dev):
         bsr.bsr_matmat(dataT, idx, X[:, :-1])
     with pytest.raises(ValueError):
         bsr.bsr_matmat(dataT, idx, X[:, :0].T)             # no lanes
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-6)])
+def test_complex_vectors_on_real_blocks_take_b3(dev, precision, dtype, tol):
+    """A complex x or lane stack on a real BSROperator on the card: its real
+    and imaginary parts as 2m real lanes of ONE B3 launch (the split form
+    at "high" on f32 data, held at 2e-5 against f64 like B3's split
+    lanes), equal to to_dense() @ x; the blocks stay real."""
+    rng = np.random.RandomState(7)
+    n, B = 5 * 32 - 9, 32
+    H = rng.standard_normal((n, n))
+    op = bsr.BSROperator.from_dense(H.astype(np.float32) if dtype ==
+                                    torch.float32 else H, block_size=B,
+                                    precision=precision, device=dev)
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    X = torch.as_tensor(rng.standard_normal((3, n))
+                        + 1j * rng.standard_normal((3, n)), dtype=cdt,
+                        device=dev)
+    split = precision == "high" and dtype == torch.float32
+    key = "bsr_spmm_split" if split else "bsr_spmm"
+    dense = op.to_dense().cpu().numpy().astype(np.complex128)
+    bsr.reset_launch_counts()
+    y = op.matvec(X[0])
+    Y = op.matvec_lanes(X)
+    torch.cuda.synchronize()
+    assert bsr.launches[key] == 2 and sum(bsr.launches.values()) == 2
+    assert op.dataT.dtype == dtype and y.dtype == Y.dtype == cdt
+    tol = 2e-5 if split else tol
+    Xh = X.cpu().numpy()
+    for got, ref in ((y, dense @ Xh[0]), (Y, Xh @ dense.T)):
+        got = got.cpu().numpy()
+        assert np.abs(got - ref).max() <= tol * np.abs(ref).max()

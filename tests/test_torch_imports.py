@@ -41,7 +41,12 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing():
     assert {"eigensolvers_tpu_torch.ops.sparse",
             "eigensolvers_tpu_torch.ops.linear_solvers",
             "eigensolvers_tpu_torch.solvers.step",
-            "eigensolvers_tpu_torch.solvers.fast_lanczos"} <= set(got["modules"])
+            "eigensolvers_tpu_torch.solvers.fast_lanczos",
+            "eigensolvers_tpu_torch.solvers.feast",
+            "eigensolvers_tpu_torch.solvers.fast_feast",
+            "eigensolvers_tpu_torch.utils.quadrature",
+            "eigensolvers_tpu_torch.models.op_parser",
+            "eigensolvers_tpu_torch.models.molecules"} <= set(got["modules"])
     assert got["built"] == 0 and not got["triton"]
 
 
@@ -52,3 +57,15 @@ def test_sources_never_import_jax_or_the_jax_package():
     offenders = [str(p) for p in PKG.rglob("*.py")
                  if pattern.search(p.read_text())]
     assert offenders == []
+
+
+def test_op_files_ship_inside_the_package():
+    """The molecule models read the package's own .op files, which live in
+    the package directory (no path outside it, nothing downloaded)."""
+    from eigensolvers_tpu_torch.models import molecules
+    data = PKG / "models" / "data"
+    assert sorted(p.name for p in data.glob("*.op")) == ["ch3cn.op",
+                                                         "pyr4+.op"]
+    for path in (molecules.PYR4_OP, molecules.CH3CN_OP):
+        assert pathlib.Path(path).resolve().parent == data
+        assert pathlib.Path(path).stat().st_size > 0

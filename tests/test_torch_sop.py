@@ -1,0 +1,206 @@
+"""The port's sum-of-products operators, ``.op`` parser and molecule models
+against the JAX package on the same inputs.
+
+Tolerances (f64 throughout):
+* matvec, ``diagonal`` and ``to_dense`` of ``SumOfProductOperator``
+  (chunked and not) and ``GroupedSoPOperator``: 1e-12 relative to the
+  largest entry (the two differ in summation order only);
+* mode fusion and regrouping are exact re-factorizations: the same
+  operator to 1e-12;
+* ``parse_op_file``: the same ``OpSpec`` (labels, parameters and
+  coefficients bit for bit: the same float arithmetic);
+* the lowest levels of the pyrazine and CH3CN cuts (eigvalsh of the dense
+  forms): 1e-9 relative;
+* Lanczos on a SoP operator: the Ritz value nearest the target agrees with
+  the JAX run and the exact level to 1e-9 relative (1e-10 inner solves,
+  eConv 1e-10)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from eigensolvers_tpu import JaxVector
+from eigensolvers_tpu import inexactLanczosDiagonalization as jax_lanczos
+from eigensolvers_tpu.models import molecules as jmol
+from eigensolvers_tpu.models import op_parser as jparser
+from eigensolvers_tpu.models.synthetic import random_sop_terms
+from eigensolvers_tpu.ops import operators as jops
+
+from eigensolvers_tpu_torch import (GroupedSoPOperator, SumOfProductOperator,
+                                    TorchVector, calculateTarget)
+from eigensolvers_tpu_torch import inexactLanczosDiagonalization as lanczos
+from eigensolvers_tpu_torch.convert import operator_from_arrays
+from eigensolvers_tpu_torch.models import molecules as tmol
+from eigensolvers_tpu_torch.models import op_parser as tparser
+from eigensolvers_tpu_torch.ops import operators as tops
+from test_torch_common import CPU, as_np, torch_vec
+
+DIMS = [3, 2, 3, 3, 3, 5]          # tests/test_sop_operator.py's problem
+
+
+def _close(a, b, tol=1e-12):
+    a, b = as_np(a), np.asarray(b)
+    assert a.shape == b.shape
+    np.testing.assert_allclose(a, b, rtol=0,
+                               atol=tol * max(1.0, np.abs(b).max()))
+
+
+def _terms():
+    return random_sop_terms(nDim=6, dims=DIMS, nSum=3, seed=1212)
+
+
+def _pairs():
+    """(name, JAX operator, port operator) for the random SoP problem."""
+    terms = _terms()
+    jsop = jops.SumOfProductOperator.from_terms(6, DIMS, terms)
+    jgrp = jops.GroupedSoPOperator.from_terms(6, DIMS, terms)
+    jchunk = jops.SumOfProductOperator(jsop.factors, term_chunk=2)
+    return [
+        ("plain", jsop,
+         tops.SumOfProductOperator.from_terms(6, DIMS, terms, device=CPU)),
+        ("chunked", jchunk,
+         tops.SumOfProductOperator([as_np(f) for f in jsop.factors],
+                                   term_chunk=2, device=CPU)),
+        ("grouped", jgrp,
+         tops.GroupedSoPOperator.from_terms(6, DIMS, terms, device=CPU)),
+    ]
+
+
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["plain", "chunked",
+                                                  "grouped"])
+def test_sop_operators_match_jax(which):
+    _, jop, top = _pairs()[which]
+    assert top.shape == tuple(jop.shape) and top.nSum == jop.nSum
+    rng = np.random.RandomState(which)
+    for x in (rng.rand(*DIMS), rng.standard_normal(int(np.prod(DIMS)))):
+        _close(top.matvec(torch.as_tensor(x)), jop.matvec(jnp.asarray(x)))
+    _close(top.diagonal(), jop.diagonal())
+    _close(top.to_dense(), jop.to_dense())
+    if which == 2:
+        for ft, fj in zip(top.factors, jop.factors):
+            _close(ft, fj)
+
+
+def test_chunked_pads_terms_like_jax():
+    _, jop, top = _pairs()[1]
+    assert top.term_chunk == jop.term_chunk == 2
+    assert top.nSum == jop.nSum == 4              # 3 terms, one zero term
+
+
+@pytest.mark.parametrize("target", [20, 256])
+def test_fuse_and_regroup_give_the_same_operator(target):
+    terms = _terms()
+    fd_t, ft_t, parts_t = tops.fuse_sop_terms(DIMS, terms, target=target)
+    fd_j, ft_j, parts_j = jops.fuse_sop_terms(DIMS, terms, target=target)
+    assert (fd_t, parts_t) == (fd_j, parts_j)
+    for (ct, mt), (cj, mj) in zip(ft_t, ft_j):
+        assert ct == cj and sorted(mt) == sorted(mj)
+        for d in mt:
+            np.testing.assert_array_equal(mt[d], mj[d])
+    ref = tops.GroupedSoPOperator.from_terms(6, DIMS, terms, device=CPU)
+    fused = tops.GroupedSoPOperator.from_terms(len(fd_t), fd_t, ft_t,
+                                               device=CPU)
+    parts = [[4, 0], [], [2, 1, 5], [3]]          # any order, a virtual mode
+    rd, rt = tops.regroup_sop_terms(DIMS, terms, parts)
+    assert (rd, len(rt)) == (jops.regroup_sop_terms(DIMS, terms, parts)[0],
+                             len(terms))
+    regrouped = tops.GroupedSoPOperator.from_terms(len(rd), rd, rt,
+                                                   device=CPU)
+    x = np.random.RandomState(2).rand(*DIMS)
+    want = ref.matvec(torch.as_tensor(x).reshape(-1))
+    _close(fused.matvec(torch.as_tensor(x).reshape(-1)), want)
+    # regrouping permutes the modes: permute x and the result alike
+    perm = [d for p in parts for d in p]
+    xp = np.transpose(x, perm).reshape(-1)
+    yp = regrouped.matvec(torch.as_tensor(xp))
+    y = as_np(yp).reshape([DIMS[d] for d in perm])
+    _close(np.transpose(y, np.argsort(perm)).reshape(-1), as_np(want))
+    with pytest.raises(ValueError, match="partition"):
+        tops.regroup_sop_terms(DIMS, terms, [[0, 1]])
+
+
+@pytest.mark.parametrize("name", ["PYR4_OP", "CH3CN_OP"])
+def test_parse_op_file_gives_the_same_spec(name):
+    st = tparser.parse_op_file(getattr(tmol, name))
+    sj = jparser.parse_op_file(getattr(jmol, name))
+    assert (st.title, st.mode_labels, st.parameters) == \
+        (sj.title, sj.mode_labels, sj.parameters)
+    assert [(t.coeff, t.factors) for t in st.terms] == \
+        [(t.coeff, t.factors) for t in sj.terms]
+
+
+def test_op_data_files_ship_with_the_port():
+    """The port reads its own copies of the .op files, identical to the
+    JAX package's."""
+    for name in ("PYR4_OP", "CH3CN_OP"):
+        mine, theirs = getattr(tmol, name), getattr(jmol, name)
+        assert "eigensolvers_tpu_torch" in mine
+        with open(mine, "rb") as a, open(theirs, "rb") as b:
+            assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("build,kw", [
+    ("pyrazine4_operator", dict(N=4)),
+    ("ch3cn_operator", dict(N=5, nModesCut=4)),
+    ("ch3cn_operator", dict(N=5, nModesCut=4, fuse=128)),
+], ids=["pyr4", "ch3cn", "ch3cn-fused"])
+def test_molecule_cuts_give_the_jax_levels(build, kw):
+    top, tspec, _ = getattr(tmol, build)(device=CPU, **kw)
+    jop, jspec, _ = getattr(jmol, build)(**kw)
+    assert top.dims == tuple(jop.dims)
+    Ht, Hj = as_np(top.to_dense()), np.asarray(jop.to_dense())
+    _close(Ht, Hj)
+    et, ej = np.linalg.eigvalsh(Ht)[:6], np.linalg.eigvalsh(Hj)[:6]
+    np.testing.assert_allclose(et, ej, rtol=1e-9)
+    x = np.random.RandomState(5).rand(Ht.shape[0])
+    _close(top.matvec(torch.as_tensor(x)), jop.matvec(jnp.asarray(x)))
+
+
+def test_lanczos_on_sop_matches_jax():
+    _, jop, top = _pairs()[2]
+    ev_exact = np.linalg.eigvalsh(as_np(top.to_dense()))
+    target = calculateTarget(ev_exact, 8)
+    opts = {"linearSystemArgs": {"linearSolver": "minres", "linearIter": 3000,
+                                 "linear_tol": 1e-10, "linear_atol": 1e-12}}
+    jv = JaxVector(np.random.RandomState(7).rand(*DIMS), opts)
+    evj, _, _ = jax_lanczos(jop, jv, target, 20, 10, 1e-10, writeOut=False)
+    evt, uvt, _ = lanczos(top, torch_vec(jv, opts), target, 20, 10, 1e-10,
+                          writeOut=False)
+    got = np.asarray(evt)[np.argmin(np.abs(np.asarray(evt) - target))]
+    ref = np.asarray(evj)[np.argmin(np.abs(np.asarray(evj) - target))]
+    exact = ev_exact[np.argmin(np.abs(ev_exact - target))]
+    assert abs(got - ref) <= 1e-9 * abs(ref)
+    assert abs(got - exact) <= 1e-9 * abs(exact)
+    assert tuple(uvt[0].array.shape) == tuple(DIMS)
+
+
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["plain", "chunked",
+                                                  "grouped"])
+def test_convert_carries_sop_operators_across(which):
+    _, jop, _ = _pairs()[which]
+    if which == 2:
+        arrays = {"dims": jop.dims, "id_coeff": np.asarray(jop.id_coeff),
+                  "groups": [(m, [np.asarray(f) for f in facs])
+                             for m, facs in jop.groups],
+                  "precision": jop.precision}
+    else:
+        arrays = {"factors": [np.asarray(f) for f in jop.factors],
+                  "term_chunk": jop.term_chunk, "precision": jop.precision}
+    top = operator_from_arrays(arrays, CPU)
+    assert isinstance(top, GroupedSoPOperator if which == 2
+                      else SumOfProductOperator)
+    x = np.random.RandomState(11).rand(int(np.prod(DIMS)))
+    _close(top.matvec(torch.as_tensor(x)), jop.matvec(jnp.asarray(x)))
+    _close(top.diagonal(), jop.diagonal())
+
+
+def test_sop_constructors_default_to_the_card(monkeypatch):
+    """Without ``device`` numpy factors go to the card, which must exist."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        tops.SumOfProductOperator.from_terms(6, DIMS, _terms())
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        tmol.pyrazine4_operator(N=3)
+    op = tmol.pyrazine4_operator(N=3, device="cpu")[0]
+    assert op.id_coeff.device.type == "cpu"

@@ -346,3 +346,98 @@ def test_lane_wrappers_refuse_devices_without_a_kernel():
     hi, lo = _split(dataT)
     with pytest.raises(ValueError, match="no bsr_spmm_split kernel"):
         bsr.bsr_matmat_split(hi.to(meta), lo.to(meta), *args[1:])
+
+
+def _count_lane_calls(monkeypatch):
+    """Record the lane count of every B3 call (f32/f64 and split forms)
+    the operator makes; the plain versions run as before."""
+    calls = []
+    for name in ("bsr_matmat", "bsr_matmat_split"):
+        fn = getattr(bsr, name)
+
+        def spy(*args, fn=fn, name=name):
+            calls.append((name, args[-1].shape[0], args[-1].dtype))
+            return fn(*args)
+        monkeypatch.setattr(bsr, name, spy)
+    for name in ("bsr_matvec", "bsr_matvec_split"):
+        monkeypatch.setattr(bsr, name, lambda *a: pytest.fail("single SpMV"))
+    return calls
+
+
+# Tolerances: max |y - to_dense() @ x| relative to max |to_dense() @ x|:
+# f64 1e-12, f32 1e-6 (summation order in the working type).
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-6)])
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_complex_vectors_on_real_blocks_take_real_lanes(dtype, tol, precision,
+                                                        monkeypatch):
+    """A complex x or lane stack (m, n) on real blocks: its real and
+    imaginary parts as 2m real lanes of ONE B3 call, recombined; the dense
+    product within the tolerance ("high" f32 data: the bf16x3 split form,
+    held at 2e-5 like B3's split lanes against f64)."""
+    rng = np.random.RandomState(3)
+    n, B = 5 * 32 - 9, 32
+    H = rng.standard_normal((n, n)).astype(dtype)
+    op = bsr.BSROperator.from_dense(H, block_size=B, precision=precision,
+                                    device=CPU)
+    cdt = torch.complex128 if dtype == np.float64 else torch.complex64
+    x = torch.as_tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n),
+                        dtype=cdt)
+    X = torch.as_tensor(rng.standard_normal((3, n))
+                        + 1j * rng.standard_normal((3, n)), dtype=cdt)
+    dense = as_np(op.to_dense()).astype(np.complex128)
+    if precision == "high" and dtype == np.float32:
+        tol = 2e-5
+    calls = _count_lane_calls(monkeypatch)
+    y = op.matvec(x)
+    Y = op.matvec_lanes(X)
+    Yc = op.matmat(X.T)
+    assert y.dtype == Y.dtype == cdt
+    split = precision == "high" and dtype == np.float32
+    name = "bsr_matmat_split" if split else "bsr_matmat"
+    rdt = torch.float64 if dtype == np.float64 else torch.float32
+    assert calls == [(name, 2, rdt), (name, 6, rdt), (name, 6, rdt)]
+    for got, ref in ((y, dense @ as_np(x)), (Y, as_np(X) @ dense.T),
+                     (Yc.T, as_np(X) @ dense.T)):
+        assert np.abs(as_np(got) - ref).max() <= tol * np.abs(ref).max()
+
+
+def test_complex128_vector_on_f32_blocks_applies_in_f64(monkeypatch):
+    """A complex128 x on f32 blocks: f64 lanes of the f32 data (the JAX
+    package's promotion), complex128 out."""
+    rng = np.random.RandomState(4)
+    H = rng.standard_normal((64, 64)).astype(np.float32)
+    op = bsr.BSROperator.from_dense(H, block_size=32, device=CPU)
+    x = torch.as_tensor(rng.standard_normal(64) + 1j * rng.standard_normal(64))
+    calls = _count_lane_calls(monkeypatch)
+    y = op.matvec(x)
+    assert calls == [("bsr_matmat", 2, torch.float64)]
+    ref = H.astype(np.float64) @ as_np(x)
+    assert y.dtype == torch.complex128
+    assert np.abs(as_np(y) - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("xkind", ["real", "complex"])
+def test_complex_blocks_apply_as_two_real_block_sets(xkind, monkeypatch):
+    """Complex blocks (the JAX package takes them, through XLA) apply as
+    their real and imaginary block sets, one B3 call each, and match the
+    JAX operator and the dense product to 1e-12."""
+    rng = np.random.RandomState(5)
+    n = 3 * 32 - 4
+    H = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    jop = JaxBSR.from_dense(H, block_size=32, use_pallas=False)
+    op = torch_op(jop)
+    assert op.dtype == torch.complex128
+    X = rng.standard_normal((2, n))
+    if xkind == "complex":
+        X = X + 1j * rng.standard_normal((2, n))
+    calls = _count_lane_calls(monkeypatch)
+    Y = op.matvec_lanes(torch.as_tensor(X))
+    lanes = 4 if xkind == "complex" else 2
+    assert calls == [("bsr_matmat", lanes, torch.float64)] * 2
+    ref = X @ H.T
+    assert np.abs(as_np(Y) - ref).max() <= 1e-12 * np.abs(ref).max()
+    y = op.matvec(torch.as_tensor(X[0]))
+    np.testing.assert_allclose(as_np(y), np.asarray(jop.matvec(X[0])),
+                               rtol=0, atol=1e-12 * np.abs(ref).max())
+    np.testing.assert_allclose(as_np(op.diagonal()), np.diagonal(H), atol=0)

@@ -162,13 +162,23 @@ def test_solve_raises_on_non_convergence_like_jax():
 @pytest.mark.parametrize("solver,sigma,match", [
     ("gmres", 40.0 + 0j, "FEAST"), ("minres", 40.0 + 1j, "FEAST")])
 def test_unported_solvers_name_their_roadmap_item(solver, sigma, match):
-    """A complex shift on a real operator and RHS is the JAX package's
-    split-complex path, which comes with FEAST."""
-    _, top = _ops()[1]
-    b = TorchVector(np.ones(96), {"linearSystemArgs": {"linearSolver": solver}},
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
-        TorchVector.solve(top, b, sigma)
+    """A complex shift on a real operator and RHS takes the JAX package's
+    split-complex single solve (ported with ``match``, the FEAST slice) in
+    both packages: the same complex x to 1e-9 relative (1e-10 solve
+    tolerance), counted as one lane-stack solve."""
+    jop, top = _ops()[1]
+    report = {}
+    opts = {"linearSystemArgs": {"linearSolver": solver, "linear_tol": 1e-10,
+                                 "linear_atol": 1e-10, "linearIter": 4000}}
+    jb = JaxVector(np.ones(96), opts)
+    jx = JaxVector.solve(jop, jb, sigma)
+    opts["linearSystemArgs"]["report"] = report
+    tx = TorchVector.solve(top, torch_vec(jb, opts), sigma)
+    assert tx.dtype == torch.complex128
+    want = np.asarray(jx.array)
+    np.testing.assert_allclose(as_np(tx.array), want, rtol=0,
+                               atol=1e-9 * np.abs(want).max())
+    assert report["solves"] == 1 and report["matmats"] > 0
 
 
 @pytest.mark.parametrize("solver", ["exact", "pardiso"])
