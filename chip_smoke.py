@@ -13,16 +13,17 @@ Phases (any failure raises and the script exits non-zero):
 3. kernels vs plain PyTorch on the card, at the slice shape and at ragged
    small shapes, with errors and CUDA-event timings: the single-vector SpMV
    (B1 ``bsr_spmv``, B2 ``bsr_spmv_split``) and the multi-vector product
-   (B3 ``bsr_spmm``, ``bsr_spmm_split``) for m = 1, 2, 4, 8, 16, 32 and
-   run (f)'s 64 vectors, and across the kernels' tiles and lane chunks (both read the blocks once
-   for up to 32 lanes and run more as chunks of 32; B2 is the tensor-core
-   ``bsr_spmm_split`` launched with m = 1); the bf16x3
-   kernels against the exact split product, with a signature that tells
-   them from a true-f32 product.  Beside each time: its bound (the larger
-   of the bytes over the HBM rate and the flops over the peak rate of their
-   type) and, for the f32/f64 products, the time of the one PyTorch call
-   that computes the same function (a ``torch.sparse_bsr_tensor`` product,
-   a yardstick the port never calls; the profiler names its kernel);
+   (B3 ``bsr_spmm``, ``bsr_spmm_split``) for m = 1, 2, 4, 8, 12, 16, 32,
+   48 and run (f)'s 64 vectors, and across the kernels' tiles and lane
+   chunks (both read the blocks once for up to 32 lanes and run more as
+   chunks of 32; B2 is the tensor-core ``bsr_spmm_split`` launched with
+   m = 1); the bf16x3 kernels against the exact split product, with a
+   signature that tells them from a true-f32 product.  Beside each time:
+   its bound (the larger of the bytes over the HBM rate and the flops over
+   the peak rate of their type) and, for the f32/f64 products, the time
+   of the one PyTorch call that computes the same function (a
+   ``torch.sparse_bsr_tensor`` product, a yardstick the port never calls;
+   the profiler names its kernel);
 4. the slice through the public entry points, on a block-sparse 2-mode
    vibrational Hamiltonian with n = 262,144 and 1.21 GB of f32 block data
    on the card, each run checked against the exact spectrum and by an f64
@@ -50,11 +51,23 @@ Phases (any failure raises and the script exits non-zero):
      fused at 256 and unfused, timed and held against a numpy apply of the
      same groups on the host, then inexact Lanczos in f64 below the bottom
      of the spectrum for the 3 lowest levels, with their f64 residuals;
+   - (i) bench.py's Chebyshev window task (``bench_chebyshev``: (g)'s
+     matrix, window and guesses, f32, cuBLAS) with the bench's oracle;
+   - (j) ``chebyshevFilteredDiagonalization`` on (f)'s window of the
+     slice: f32 filter, every step one B3 launch of the m0 lanes, the
+     adaptive degree (clipped), f64 Rayleigh-Ritz, enrichment and
+     certificate; (f)'s gates, and launch counts from the attempts'
+     degrees and rounds;
+   - (k) spectrum slicing over (f)'s window on the f64 operator: the KPM
+     moments (gated by the exact window counts), then
+     ``spectrumSlicingDiagonalization`` with two windows, (f)'s solve
+     options and the polish; every level found once, (f)'s gates;
 5. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
    and a final JSON status line.
 """
 
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -70,9 +83,11 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 try:
     from eigensolvers_tpu_torch import (TorchVector, calculateTarget,
+                                        chebyshevFilteredDiagonalization,
                                         feastDiagonalization,
                                         inexactLanczosDiagonalization,
-                                        select_within_range)
+                                        select_within_range,
+                                        spectrumSlicingDiagonalization)
     from eigensolvers_tpu_torch.models import product
     from eigensolvers_tpu_torch.models.molecules import ch3cn_operator
     from eigensolvers_tpu_torch.models.synthetic import known_spectrum_matrix
@@ -81,7 +96,10 @@ try:
     from eigensolvers_tpu_torch.ops.operators import DenseOperator
     from eigensolvers_tpu_torch.solvers.fast_lanczos import \
         fastLanczosDiagonalization
+    from eigensolvers_tpu_torch.solvers import chebyshev as cheb
     from eigensolvers_tpu_torch.solvers.feast import _contour
+    from eigensolvers_tpu_torch.solvers.slicing import (
+        chebyshev_moments, window_count_from_moments)
     from eigensolvers_tpu_torch.tools.profile_passes import \
         profile as profile_passes
     from eigensolvers_tpu_torch.utils.units import au2unit, unit2au
@@ -115,13 +133,39 @@ FEAST_LINEAR = dict(linearSolver="minres", linearIter=2500, linear_tol=1e-3,
                     linear_atol=1e-5, preconditioner="jacobi",
                     errorOnNonConvergence=False, escalateIter=0)
 F_LANES = 2 * (FEAST["nc"] // 2) * FEAST["m0"]  # real lanes of one pass
-LANES = (1, 2, 4, 8, 16, 32, F_LANES)          # B3 at the slice shape
+# B3 at the slice shape: the main path's lane counts ((j)'s m0 = 12, the
+# 48 of (k)'s FEAST windows) among them
+LANES = (1, 2, 4, 8, 12, 16, 32, 48, F_LANES)
 # run (g): bench.py's FEAST window task (bench_feast) and its oracle
 FEAST_BENCH = dict(n=2048, eMin=1000.25, eMax=1004.75, m0=10, nc=8,
                    eConv=1e-6, maxit=8, oracle=1e-4)
 FEAST_BENCH_LINEAR = {"linearSolver": "minres", "linearIter": 2500,
                       "linear_tol": 1e-5, "errorOnNonConvergence": False,
                       "escalateIter": 0}
+# run (i): bench.py's Chebyshev window task (bench_chebyshev): run (g)'s
+# matrix, window and guesses, f32, the adaptive degree, specBounds from the
+# spectrum, eConv 1e-6, 30 outer iterations, the bench's 1e-4 oracle
+CHEB_BENCH = dict(eConv=1e-6, maxit=30, oracle=1e-4)
+# run (j): the Chebyshev window on the slice: (f)'s window, the adaptive
+# degree (3.5 x span / width = 64,948 here, clipped to 8,000), m0 = 12 low
+# guesses, the spectrum's bounds padded by 1 (bench_chebyshev's padding;
+# the entry point's own estimate, which the run also takes and prints,
+# lies ~4,600 below the bottom and leaves the window unresolved at this
+# degree), the fused loop; (f)'s gates
+CHEB_SLICE = dict(m0=12, eConv=1e-6, maxit=8, npackets=8,
+                  dtype=torch.float32)
+# run (k): spectrum slicing over (f)'s window on the f64 slice operator, on
+# (j)'s bounds: KPM moments of degree 2,000 from 8 probes (gated: each
+# window count within max(2, 30 %) of the exact count), then two
+# load-balanced FEAST windows with (f)'s solve options and (f)'s 8 outer
+# iterations, and one polish round; (f)'s gates, each level found once.
+# With 4 outer iterations unconverged Ritz pairs polished onto the same
+# states and half the levels were dropped as duplicates; a second polish
+# round solves a system singular to machine precision at the first round's
+# Rayleigh quotient, and the Jacobi-preconditioned MINRES then moves the
+# pairs off their states (PERF.md §6)
+SLICING = dict(degree=2000, nProbes=8, seed=0, nWindows=2, maxit=8,
+               polish_rounds=1, eConv=1e-6, count_rtol=0.3, count_atol=2)
 # run (h): the CH3CN 6-mode cut of bench.py's bench_sop; the apply's gates
 # are the bench's: f32 within 3x the numpy f32 error floor (+1e-10), f64
 # within 1e-10 of max |y| of the numpy f64 apply (summation order).  The
@@ -187,6 +231,50 @@ def signature(y, exact, y64):
     roundoff does not align with d) and ~1 for a true-f32 product."""
     d = y64.double() - exact.double()
     return float(((y.double() - exact.double()) * d).sum() / (d * d).sum())
+
+
+@contextlib.contextmanager
+def recording_calls():
+    """Record (kernel, lanes, dtype) of every B1 / B3 f32-f64 product call
+    while the block is open, by wrapping the wrappers in ``ops.sparse``."""
+    calls = []
+    b1, b3 = bsr.bsr_matvec, bsr.bsr_matmat
+
+    def rec_b1(dataT, idx, xp):
+        calls.append(("bsr_spmv", 1, xp.dtype))
+        return b1(dataT, idx, xp)
+
+    def rec_b3(dataT, idx, Xp):
+        calls.append(("bsr_spmm", Xp.shape[0], Xp.dtype))
+        return b3(dataT, idx, Xp)
+
+    bsr.bsr_matvec, bsr.bsr_matmat = rec_b1, rec_b3
+    try:
+        yield calls
+    finally:
+        bsr.bsr_matvec, bsr.bsr_matmat = b1, b3
+
+
+def count_calls(calls, kernel, lanes=None, dtype=None):
+    return sum(1 for k, m, dt in calls if k == kernel
+               and lanes in (None, m) and dtype in (None, dt))
+
+
+def filter_rates(lam, a, b, degree, e_min, e_max, m0s=(8, 12, 16)):
+    """The window filter's per-round convergence rate |p(l_(m0+1))| /
+    min over the window of |p| for each m0, on the exact spectrum ``lam``
+    (the levels below 200 and every 997th above), with [a, b] padded as
+    the entry point pads it."""
+    pad = 1e-3 * (b - a)
+    a, b = min(a, e_min - pad), max(b, e_max + pad)
+    cf = cheb.chebyshev_window_coefficients(degree, a, b, e_min, e_max)
+    x = np.concatenate([lam[lam < 200], lam[lam >= 200][::997]])
+    p = np.abs(np.polynomial.chebyshev.chebval(
+        (x - 0.5 * (a + b)) / (0.5 * (b - a)), cf))
+    inside = (x >= e_min) & (x <= e_max)
+    outside = np.sort(p[~inside])[::-1]
+    return {m0: float(f"{outside[m0 - inside.sum()] / p[inside].min():.3g}")
+            for m0 in m0s}
 
 
 def np_sop_apply(groups, id_coeff, dims, x, dtype):
@@ -296,7 +384,8 @@ def main():
     op32 = product.kron_sum_bsr(H_out, h_in, BANDWIDTH, torch.float32, dev,
                                 precision="highest")
     op64 = product.kron_sum_bsr(H_out, h_in, BANDWIDTH, torch.float64, dev)
-    op_high = bsr.BSROperator(op32.dataT, op32.idx, op32.n, precision="high")
+    op_high = bsr.BSROperator.from_transposed(op32.dataT, op32.idx, op32.n,
+                                              precision="high")
     torch.cuda.synchronize()
     nrb, nbpr, B, _ = op32.dataT.shape
     gb32 = op32.dataT.numel() * 4 / 1e9
@@ -570,6 +659,38 @@ def main():
                 f"{max(rels):.2e}")
         require(max(ress) <= RES_TOL, f"{tag}: residual {max(ress):.2e}")
 
+    def window_states(tag, ev, Y, want, dtype):
+        """Each exact level of a window against its nearest Ritz pair (all
+        distinct): relative error and f64 residual ||Hv - lv|| / ||H||,
+        held to the slice's gates."""
+        ev = np.asarray(ev)
+        require(len(ev) == len(Y) and np.all(np.isfinite(ev)),
+                f"{tag}: bad eigenvalues {ev}")
+        picks = [int(np.argmin(np.abs(ev - t))) for t in want]
+        require(len(set(picks)) == len(want), f"{tag}: levels {want} share "
+                f"Ritz values {ev}")
+        rels, ress = [], []
+        for k, exact in zip(picks, want):
+            v = Y[k].array
+            require(tuple(v.shape) == (op32.n,) and v.dtype == dtype
+                    and bool(torch.isfinite(v).all()),
+                    f"{tag}: bad Ritz vector {tuple(v.shape)} {v.dtype}")
+            v = v.double()
+            r = bsr.bsr_matvec_plain(op64.dataT, op64.idx, v) - ev[k] * v
+            rels.append(abs(ev[k] - exact) / abs(exact))
+            ress.append(float(torch.linalg.vector_norm(r)
+                              / torch.linalg.vector_norm(v)) / h_norm)
+        print(f"[slice {tag}] window [{e_min:.6f}, {e_max:.6f}] holds levels "
+              f"{lo}..{hi}; Ritz {', '.join(f'{ev[k]:.8f}' for k in picks)} "
+              f"exact {', '.join(f'{e:.8f}' for e in want)}; rel err "
+              f"{', '.join(f'{e:.2e}' for e in rels)} (tol "
+              f"{EV_RTOL['highest']:.0e}); ||Hv-lv||/||H|| "
+              f"{', '.join(f'{e:.2e}' for e in ress)} (tol {RES_TOL:.0e})",
+              flush=True)
+        require(max(rels) <= EV_RTOL["highest"], f"{tag}: eigenvalue rel "
+                f"err {max(rels):.2e}")
+        require(max(ress) <= RES_TOL, f"{tag}: residual {max(ress):.2e}")
+
     def check_counts(tag, counts, expected):
         """Every BSR kernel's launches in the run equal the applies the
         run reports for it; kernels not named launch 0 times (the dense and
@@ -577,9 +698,9 @@ def main():
         want = {k: expected.get(k, 0) for k in counts}
         require(counts == want, f"{tag}: launches {counts}, the run "
                 f"reports {want}")
-        require(any(want.values()) or tag in ("(d) dense", "(g) dense FEAST",
-                                              "(h) CH3CN Lanczos"),
-                f"{tag}: no kernel launched")
+        require(any(want.values()) or tag in (
+            "(d) dense", "(g) dense FEAST", "(h) CH3CN Lanczos",
+            "(i) dense Chebyshev"), f"{tag}: no kernel launched")
 
     def report_line(tag, status, report, wall, unconverged):
         applies = report.get("matvecs", 0) + report.get("matmats", 0)
@@ -692,69 +813,37 @@ def main():
     e_max = 0.5 * float(levels[hi] + levels[hi + 1])
     want = levels[lo:hi + 1]
     m0, nk = FEAST["m0"], FEAST["nc"] // 2
-    report, lanes = {}, []
-    b3 = bsr.bsr_matmat
-
-    def b3_lanes(dataT, idx, Xp):              # records each call's lanes
-        lanes.append(Xp.shape[0])
-        return b3(dataT, idx, Xp)
-
+    report = {}
     tag = "(f) FEAST highest"
-    bsr.bsr_matmat = b3_lanes
-    try:
+    with recording_calls() as calls:
         (ev, Y, status), wall, counts, unconv = run(
             feastDiagonalization, op32,
             vectors(guess_block(m0, FEAST["npackets"]), report,
                     FEAST_LINEAR),
             FEAST["nc"], "legendre", e_min, e_max, FEAST["eConv"],
             FEAST["maxit"], writeOut=False)
-    finally:
-        bsr.bsr_matmat = b3
-    ev = np.asarray(ev)
     outer = status["outerIter"] + 1
     passes = report["matmats"]
-    require(len(ev) == m0 and len(Y) == m0, f"{tag}: the subspace shrank "
-            f"to {len(ev)}")
-    picks = [int(np.argmin(np.abs(ev - t))) for t in want]
-    require(len(set(picks)) == len(want), f"{tag}: levels {want} share "
-            f"Ritz values {ev}")
-    rels, ress = [], []
-    for k, exact in zip(picks, want):
-        v = Y[k].array
-        require(tuple(v.shape) == (op32.n,) and v.dtype == torch.float64
-                and bool(torch.isfinite(v).all()),
-                f"{tag}: bad Ritz vector {tuple(v.shape)} {v.dtype}")
-        r = bsr.bsr_matvec_plain(op64.dataT, op64.idx, v) - ev[k] * v
-        rels.append(abs(ev[k] - exact) / abs(exact))
-        ress.append(float(torch.linalg.vector_norm(r)
-                          / torch.linalg.vector_norm(v)) / h_norm)
     b3_ms = results[("bsr_spmm f32", F_LANES)]["ms"]
-    print(f"[slice {tag}] window [{e_min:.6f}, {e_max:.6f}] holds levels "
-          f"{lo}..{hi}; Ritz {', '.join(f'{ev[k]:.8f}' for k in picks)} "
-          f"exact {', '.join(f'{e:.8f}' for e in want)}; rel err "
-          f"{', '.join(f'{e:.2e}' for e in rels)} (tol "
-          f"{EV_RTOL['highest']:.0e}); ||Hv-lv||/||H|| "
-          f"{', '.join(f'{e:.2e}' for e in ress)} (tol {RES_TOL:.0e})",
-          flush=True)
+    lanes = collections.Counter(m for k, m, _ in calls if k == "bsr_spmm")
     print(f"[slice {tag}] converged {status['isConverged']} after {outer} "
           f"outer iterations (residual {status.get('residual', 0):.2e}); "
           f"{report['solves']} lane solves, {report['iterations']} MINRES "
           f"iterations ({unconv} warnings of unconverged lanes); {passes} "
           f"passes of {F_LANES} lanes; B3 launches {counts['bsr_spmm']} "
-          f"by lanes {dict(sorted(collections.Counter(lanes).items()))}; "
+          f"by lanes {dict(sorted(lanes.items()))}; "
           f"wall {wall:.2f} s, {wall / passes * 1e3:.4f} ms/pass; B3 "
           f"{b3_ms:.4f} ms at {F_LANES} lanes (phase 3), B3 share of wall "
           f"{passes * b3_ms / 1e3 / wall:.3f}; phases: "
           + ", ".join(f"{p} {t['seconds']:.2f} s ({t['calls']})"
                       for p, t in status["timers"].items()), flush=True)
-    require(max(rels) <= EV_RTOL["highest"], f"{tag}: eigenvalue rel err "
-            f"{max(rels):.2e}")
-    require(max(ress) <= RES_TOL, f"{tag}: residual {max(ress):.2e}")
+    require(len(ev) == m0 and len(Y) == m0, f"{tag}: the subspace shrank "
+            f"to {len(ev)}")
+    window_states(tag, ev, Y, want, torch.float64)
     check_counts(tag, counts, {"bsr_spmm": passes + outer})
-    require(len(lanes) == counts["bsr_spmm"]
-            and lanes.count(F_LANES) == passes and lanes.count(m0) == outer,
-            f"{tag}: B3 lane counts {collections.Counter(lanes)}, expected "
-            f"{passes} x {F_LANES} and {outer} x {m0}")
+    require(len(calls) == counts["bsr_spmm"] and lanes[F_LANES] == passes
+            and lanes[m0] == outer, f"{tag}: B3 lane counts {lanes}, "
+            f"expected {passes} x {F_LANES} and {outer} x {m0}")
     walls[tag] = wall
     for k, v in counts.items():
         totals[k] += v
@@ -768,6 +857,156 @@ def main():
         precond="jacobi"))
     print(f"[slice {tag}] one pass of {F_LANES} lanes under torch.profiler: "
           + json.dumps(prof), flush=True)
+
+    # (j): the Chebyshev window on the slice, (f)'s window.  The entry
+    # point's own bounds estimate (30 B1 launches) is taken and printed,
+    # with the filter's per-round rate on the exact spectrum for it and for
+    # the spectrum's own bounds padded by 1 (bench_chebyshev's padding),
+    # which the run is given: the estimate's lower margin puts the window
+    # in the interior of [a, b], where degree 8,000 cannot resolve it.
+    # Every filter step is one B3 launch of m0 lanes at the state's dtype;
+    # each round's Rayleigh-Ritz apply, the enrichment's two and the
+    # certificate one B3 launch of m0 f64 lanes each.
+    cs = CHEB_SLICE
+    sdt = cs["dtype"]
+    op_j = op32 if sdt == torch.float32 else op64
+    lam = np.sort((e_out[:, None] + e_in[None, :]).ravel())
+    spec = (float(lam[0]) - 1.0, float(lam[-1]) + 1.0)
+    tag = "(j) Chebyshev highest"
+    est, wall_b, counts, _ = run(cheb.estimate_spectral_bounds, op_j,
+                                 op_j.n, dtype=sdt)
+    require(counts == dict(dict.fromkeys(counts, 0), bsr_spmv=30),
+            f"{tag}: bounds estimate launches {counts}")
+    for k, v in counts.items():
+        totals[k] += v
+    degree_j = cheb.adaptive_degree(*spec, e_min, e_max)
+    print(f"[slice {tag}] spectrum [{lam[0]:.4f}, {lam[-1]:.4f}]; the entry "
+          f"point's estimate [{est[0]:.4f}, {est[1]:.4f}] in {wall_b:.2f} s "
+          f"(30 B1 launches); degree {degree_j} (3.5 x span / width = "
+          f"{3.5 * (spec[1] - spec[0]) / (e_max - e_min):.0f} before the "
+          f"clip); per-round filter rate |p(l_m0+1)| / min_window |p| at m0 "
+          f"= 8, 12, 16 on the exact spectrum: estimated bounds "
+          f"{filter_rates(lam, *est, degree_j, e_min, e_max)}, the "
+          f"spectrum's +-1 {filter_rates(lam, *spec, degree_j, e_min, e_max)}",
+          flush=True)
+    attempts = []                   # (degree, rounds) of each fused attempt
+    fused = cheb._fused_window
+
+    def fused_recorded(op, W, cf, *args):
+        out = fused(op, W, cf, *args)
+        attempts.append((len(cf) - 1, out[3]))
+        return out
+
+    cheb._fused_window = fused_recorded
+    try:
+        with recording_calls() as calls:
+            (ev, Y, status), wall, counts, _ = run(
+                chebyshevFilteredDiagonalization, op_j,
+                [TorchVector(torch.as_tensor(g, dtype=sdt, device=dev))
+                 for g in guess_block(cs["m0"], cs["npackets"])],
+                None, e_min, e_max, cs["eConv"], cs["maxit"],
+                specBounds=spec, writeOut=False)
+    finally:
+        cheb._fused_window = fused
+    vres = np.asarray(status["vecResiduals"])
+    print(f"[slice {tag}] {str(sdt)[6:]} state, m0 {cs['m0']}: attempts "
+          f"(degree, rounds) {attempts}; converged {status['isConverged']}, "
+          f"residual {status['residual']:.2e}, outerIter "
+          f"{status['outerIter']}; vector residuals "
+          f"{', '.join(f'{r:.2e}' for r in vres)}; wall {wall:.2f} s, "
+          f"{wall / max(1, count_calls(calls, 'bsr_spmm')) * 1e3:.4f} "
+          f"ms/apply; launches {counts}", flush=True)
+    window_states(tag, ev, Y, want, torch.float64)
+    filt = sum(d * r for d, r in attempts)
+    rr = sum(r + 3 for _, r in attempts)
+    want_calls = collections.Counter({("bsr_spmm", cs["m0"], sdt): filt})
+    want_calls[("bsr_spmm", cs["m0"], torch.float64)] += rr
+    require(collections.Counter(calls) == want_calls, f"{tag}: calls "
+            f"{collections.Counter(calls)}, expected {want_calls}")
+    check_counts(tag, counts, {"bsr_spmm": filt + rr})
+    walls[tag] = wall_b + wall
+    for k, v in counts.items():
+        totals[k] += v
+
+    # (k): spectrum slicing over (f)'s window on the f64 operator, on (j)'s
+    # bounds (the spectrum's, padded by 1).  The moments: one B3 launch of
+    # nProbes lanes per degree; the sweep repeats them, then each window's
+    # fused FEAST (its passes, one f64 subspace apply per outer iteration)
+    # and the polish (batched MINRES passes, one B1 per pair and round for
+    # the Rayleigh quotient and per pair for the residual)
+    sl = SLICING
+    tag = "(k) spectrum slicing"
+    with recording_calls() as calls:
+        (mu, (a_, b_)), wall_mu, counts, _ = run(
+            chebyshev_moments, op64, op64.n, degree=sl["degree"],
+            nProbes=sl["nProbes"], bounds=spec, seed=sl["seed"])
+    require(counts == dict(dict.fromkeys(counts, 0), bsr_spmm=sl["degree"])
+            and count_calls(calls, "bsr_spmm", sl["nProbes"], torch.float64)
+            == sl["degree"], f"{tag}: moment launches {counts}")
+    for k, v in counts.items():
+        totals[k] += v
+    mid = 0.5 * (e_min + e_max)
+    kpm = []
+    for w_lo, w_hi in ((e_min, e_max), (e_min, mid), (mid, e_max)):
+        count = window_count_from_moments(mu, a_, b_, w_lo, w_hi, op64.n)
+        exact = int(np.sum((levels >= w_lo) & (levels <= w_hi)))
+        kpm.append((w_lo, w_hi, count, exact))
+        require(abs(count - exact) <= max(sl["count_atol"],
+                                           sl["count_rtol"] * exact),
+                f"{tag}: KPM count {count:.2f} in [{w_lo}, {w_hi}], exact "
+                f"{exact}")
+    print(f"[slice {tag}] KPM moments of degree {sl['degree']} from "
+          f"{sl['nProbes']} probes on [{a_:.4f}, {b_:.4f}]: counts "
+          + ", ".join(f"[{w0:.4f}, {w1:.4f}] {e:.2f} (exact {x})"
+                      for w0, w1, e, x in kpm)
+          + f"; wall {wall_mu:.2f} s, launches {counts}", flush=True)
+    report = {}
+    with recording_calls() as calls:
+        (ev, Y, st), wall, counts, unconv = run(
+            spectrumSlicingDiagonalization, op64, e_min, e_max,
+            nWindows=sl["nWindows"], nc=FEAST["nc"], eConv=sl["eConv"],
+            maxit=sl["maxit"], polish_rounds=sl["polish_rounds"],
+            degree=sl["degree"], nProbes=sl["nProbes"], bounds=spec,
+            seed=sl["seed"],
+            options={"linearSystemArgs": dict(FEAST_LINEAR, report=report)})
+    wins = st["windows"]
+    polished = [] if st["residuals"] is None else st["residuals"]
+    k3 = "bsr_spmm"
+    outer = sum(w["feast_status"]["outerIter"] + 1 for w in wins)
+    merged = st["found_total"] + st["dropped_spurious"]
+    print(f"[slice {tag}] windows "
+          + ", ".join(f"[{w['window'][0]:.6f}, {w['window'][1]:.6f}) est "
+                      f"{w['estimated']:.2f} m0 {w['m0']} found {w['found']}"
+                      f" converged {w['isConverged']} after "
+                      f"{w['feast_status']['outerIter'] + 1} iterations"
+                      for w in wins)
+          + f"; found {st['found_total']}, dropped_spurious "
+          f"{st['dropped_spurious']}, residual_certified "
+          f"{st['residual_certified']}, polished residuals "
+          f"{', '.join(f'{r:.2e}' for r in polished)}; "
+          f"{report['solves']} solves, {report['iterations']} MINRES "
+          f"iterations ({unconv} warnings), {report['matmats']} lane-stack "
+          f"applies; B3 calls by lanes "
+          f"{dict(collections.Counter(m for k, m, _ in calls if k == k3))}"
+          f"; wall {wall:.2f} s", flush=True)
+    require(st["found_total"] == len(want), f"{tag}: found "
+            f"{st['found_total']} pairs for {len(want)} levels: {ev}")
+    require(isinstance(st["dropped_spurious"], int), f"{tag}: no "
+            f"dropped_spurious")
+    window_states(tag, ev, Y, want, torch.float64)
+    require(st["residual_certified"] or all(w["isConverged"] for w in wins),
+            f"{tag}: neither residual-certified nor every window converged")
+    expected = {"bsr_spmv": merged * (sl["polish_rounds"] + 1),
+                "bsr_spmm": sl["degree"] + report["matmats"] + outer}
+    require(count_calls(calls, "bsr_spmm", dtype=torch.float64)
+            == expected["bsr_spmm"] and count_calls(
+                calls, "bsr_spmv", dtype=torch.float64)
+            == expected["bsr_spmv"], f"{tag}: calls "
+            f"{collections.Counter(calls)}, expected {expected} in f64")
+    check_counts(tag, counts, expected)
+    walls[tag] = wall_mu + wall
+    for k, v in counts.items():
+        totals[k] += v
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # (d): the dense headline task, f32 on the card
@@ -831,6 +1070,39 @@ def main():
             f"{tag}: found {len(got)}, max err {max(errs):.2e}")
     require(Y[0].array.is_cuda, f"{tag}: Ritz vectors left the card")
     check_counts(tag, counts, {})
+    walls[tag] = wall
+
+    # (i): bench.py's Chebyshev window task (bench_chebyshev) on (g)'s
+    # matrix and guesses, f32 on the card: every filter step one cuBLAS
+    # product of the m0 lanes; run twice (the first warms cuBLAS)
+    tag = "(i) dense Chebyshev"
+    A32 = DenseOperator(np.asarray(Hg).astype(np.float32), device=dev)
+    for attempt in range(2):
+        (ev, Y, status), wall, counts, _ = run(
+            chebyshevFilteredDiagonalization, A32,
+            [TorchVector(torch.as_tensor(Yg[:, i], dtype=torch.float32,
+                                         device=dev))
+             for i in range(fb["m0"])],
+            None, fb["eMin"], fb["eMax"], CHEB_BENCH["eConv"],
+            CHEB_BENCH["maxit"],
+            specBounds=(float(evg[0]) - 1.0, float(evg[-1]) + 1.0),
+            writeOut=False)
+        got = np.sort(select_within_range(np.asarray(ev), fb["eMin"],
+                                          fb["eMax"])[0])
+        errs = [float(np.min(np.abs(got - t))) if len(got) else 9e9
+                for t in truth]
+        print(f"[slice {tag}] n={fb['n']} window [{fb['eMin']}, "
+              f"{fb['eMax']}], m0 {fb['m0']}: found {len(got)} of "
+              f"{len(truth)}, max |err| {max(errs):.2e} (oracle "
+              f"{CHEB_BENCH['oracle']:.0e}); degree {status['degree']}, "
+              f"{status['outerIter'] + 1} outer iterations, converged "
+              f"{status['isConverged']}; wall {wall:.3f} s (run "
+              f"{attempt + 1})",
+              flush=True)
+        require(len(got) >= len(truth) and max(errs) < CHEB_BENCH["oracle"],
+                f"{tag}: found {len(got)}, max err {max(errs):.2e}")
+        require(Y[0].array.is_cuda, f"{tag}: Ritz vectors left the card")
+        check_counts(tag, counts, {})
     walls[tag] = wall
 
     # (h): the CH3CN 6-mode cut of bench_sop: the grouped apply in f64 and

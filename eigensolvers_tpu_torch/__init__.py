@@ -1,7 +1,9 @@
 """eigensolvers_tpu_torch — the PyTorch/CUDA port of eigensolvers_tpu.
 
 Computes a few interior eigenpairs of large Hermitian operators near a
-target energy with inexact shift-and-invert Lanczos, written against the
+target energy with inexact shift-and-invert Lanczos, and every eigenpair
+in a window with FEAST, the Chebyshev-filtered window solver and spectrum
+slicing, written against the
 same ``AbstractVector`` contract, entry points, status keys and output
 files as the JAX package ``eigensolvers_tpu`` beside it.
 
@@ -18,13 +20,16 @@ Design:
 This package never imports jax or ``eigensolvers_tpu``.
 """
 
+from .vectors.abstract import AbstractVector, LINDEP_DEFAULT_VALUE
 from .vectors.dense import TorchVector
-from .ops.operators import (DenseOperator, DiagonalOperator,
-                            GroupedSoPOperator, SumOfProductOperator,
-                            as_operator)
+from .ops.operators import (AbstractOperator, DenseOperator,
+                            DiagonalOperator, GroupedSoPOperator,
+                            SumOfProductOperator, as_operator)
 from .ops.sparse import BSROperator
-from .solvers.feast import feastDiagonalization
 from .solvers.lanczos import inexactLanczosDiagonalization
+from .solvers.feast import feastDiagonalization
+from .solvers.chebyshev import chebyshevFilteredDiagonalization
+from .solvers.slicing import spectrumSlicingDiagonalization
 from .utils.quadrature import quadraturePointsWeights
 from .utils.subspace import (
     basisTransformation,
@@ -38,28 +43,41 @@ from .utils.subspace import (
     lowdinOrthoMatrix,
     select_within_range,
 )
+from .config import (VectorOptions, LinearSystemOptions, CompressOptions,
+                     LanczosConfig, FeastConfig, normalize_options)
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "TorchVector",
-    "BSROperator",
+    "AbstractVector",
+    "AbstractOperator",
     "DenseOperator",
     "DiagonalOperator",
     "GroupedSoPOperator",
     "SumOfProductOperator",
+    "BSROperator",
+    "TorchVector",
+    "LINDEP_DEFAULT_VALUE",
     "as_operator",
-    "feastDiagonalization",
     "inexactLanczosDiagonalization",
-    "quadraturePointsWeights",
+    "feastDiagonalization",
+    "chebyshevFilteredDiagonalization",
+    "spectrumSlicingDiagonalization",
     "basisTransformation",
-    "calculateTarget",
     "diagonalizeHamiltonian",
     "eigenvalueResidual",
     "find_nearest",
+    "calculateTarget",
     "get_pick_function_close_to_sigma",
     "get_pick_function_maxOvlp",
     "lowdinOrtho",
     "lowdinOrthoMatrix",
     "select_within_range",
+    "quadraturePointsWeights",
+    "VectorOptions",
+    "LinearSystemOptions",
+    "CompressOptions",
+    "LanczosConfig",
+    "FeastConfig",
+    "normalize_options",
 ]

@@ -31,8 +31,9 @@ def operator_from_arrays(arrays: dict, device) -> AbstractOperator:
     is read; no jax import happens here)."""
     precision = arrays.get("precision", "highest")
     if "dataT" in arrays:
-        return BSROperator(arrays["dataT"], arrays["idx"], int(arrays["n"]),
-                           precision=precision, device=device)
+        return BSROperator.from_transposed(arrays["dataT"], arrays["idx"],
+                                           int(arrays["n"]),
+                                           precision=precision, device=device)
     if "mat" in arrays:
         return DenseOperator(arrays["mat"], precision=precision,
                              device=device)

@@ -58,7 +58,7 @@ def kron_sum_bsr(H_out: np.ndarray, h_in: np.ndarray, bandwidth: int,
     coef = torch.as_tensor(coef, dtype=dtype, device=device)
     dataT = coef[:, :, None, None] * torch.eye(B, dtype=dtype, device=device)
     dataT[:, w] += torch.as_tensor(h_in.T, dtype=dtype, device=device)
-    return BSROperator(dataT, idx, M * B, precision=precision)
+    return BSROperator.from_transposed(dataT, idx, M * B, precision=precision)
 
 
 def kron_sum_levels(e_out: np.ndarray, e_in: np.ndarray, k: int) -> np.ndarray:

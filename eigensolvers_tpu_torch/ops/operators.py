@@ -628,6 +628,14 @@ class PaddedOperator(AbstractOperator):
         return None if d is None else self._embed(d)
 
 
+def operator_device(op: AbstractOperator) -> torch.device:
+    """The device an operator's arrays live on; for one that holds none (a
+    :class:`CallableOperator`), :func:`default_device`."""
+    for t in op.buffers():
+        return t.device
+    return default_device()
+
+
 def as_operator(H, device=None) -> AbstractOperator:
     """Coerce a user-provided operator-like object into an AbstractOperator.
 

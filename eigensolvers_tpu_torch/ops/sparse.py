@@ -2,11 +2,13 @@
 hand-written CUDA kernels.
 
 :class:`BSROperator` — block-ELL layout (fixed number of BxB blocks per
-block-row, zero-padded): ``dataT (nrb, nbpr, B, B)``, ``idx (nrb, nbpr)``.
+block-row, zero-padded): ``data (nrb, nbpr, B, B)``, ``idx (nrb, nbpr)``.
 The matvec gathers whole B-blocks of x, so every flop is a dense (B, B)
-block product.  Block data is stored per-block TRANSPOSED, the layout every
-apply path consumes (``dataT[r, t, j, i] = H[r*B + i, idx[r, t]*B + j]``),
-so no apply re-transposes the whole array.
+block product.  The constructor takes the blocks in natural orientation, as
+the JAX package's does, and stores them per-block TRANSPOSED once, the
+layout every apply path consumes (``dataT[r, t, j, i] = H[r*B + i,
+idx[r, t]*B + j]``), so no apply re-transposes the whole array;
+:meth:`BSROperator.from_transposed` takes that layout as it is.
 
 Execution paths, chosen by the device of the tensors alone:
 
@@ -66,15 +68,39 @@ def reset_launch_counts() -> None:
 class BSROperator(AbstractOperator):
     """Block-ELL sparse operator (see module docstring).
 
-    ``dataT`` is the TRANSPOSED block storage, the layout the JAX package's
-    ``BSROperator.dataT`` holds; use :meth:`from_dense` / :meth:`from_scipy`
-    to build from a matrix.  ``precision="high"`` on f32 data precomputes
-    the bf16 hi/lo split of the blocks (same bytes as f32) for the split
-    kernel; "highest" and "default" apply in the data's own precision."""
+    ``data (nrb, nbpr, B, B)`` holds the blocks in natural orientation
+    (``data[r, t] = H[r*B:(r+1)*B, idx[r, t]*B:(idx[r, t]+1)*B]``), as the
+    JAX package's constructor takes them; :meth:`from_transposed` takes the
+    stored per-block transposed ``dataT`` without a copy, and
+    :meth:`from_dense` / :meth:`from_scipy` build from a matrix.
+    ``precision="high"`` on f32 data precomputes the bf16 hi/lo split of the
+    blocks (same bytes as f32) for the split kernel; "highest" and "default"
+    apply in the data's own precision.  ``use_pallas`` is accepted for the
+    JAX package's signature and ignored: the device of the tensors alone
+    picks the path (a CUDA tensor always runs its kernel), and there is no
+    Pallas here."""
 
-    def __init__(self, dataT, idx, n: int, precision="highest", device=None):
+    def __init__(self, data, idx, n: int, use_pallas=None,
+                 precision="highest", device=None):
         super().__init__()
-        dataT = as_tensor(dataT, device)
+        data = as_tensor(data, device)
+        if data.ndim != 4 or data.shape[2] != data.shape[3]:
+            raise ValueError(f"data must be (nrb, nbpr, B, B), got "
+                             f"{tuple(data.shape)}")
+        self._store(data.transpose(2, 3), idx, n, precision)
+
+    @classmethod
+    def from_transposed(cls, dataT, idx, n: int, precision="highest",
+                        device=None) -> "BSROperator":
+        """The operator of the per-block transposed blocks ``dataT`` (the
+        stored layout, ``BSROperator.dataT`` of either package), kept as
+        they are: a contiguous tensor on ``device`` is not copied."""
+        self = cls.__new__(cls)
+        AbstractOperator.__init__(self)
+        self._store(as_tensor(dataT, device), idx, n, precision)
+        return self
+
+    def _store(self, dataT, idx, n, precision):
         idx = as_tensor(idx, dataT.device, torch.int32)
         if dataT.ndim != 4 or dataT.shape[2] != dataT.shape[3]:
             raise ValueError(f"dataT must be (nrb, nbpr, B, B), got "
@@ -103,8 +129,8 @@ class BSROperator(AbstractOperator):
             self.register_buffer("dataT_lo", None)
         if dataT.is_complex():
             # the kernels take real blocks: keep both real block sets
-            self.register_buffer("dataT_re", dataT.real.contiguous())
-            self.register_buffer("dataT_im", dataT.imag.contiguous())
+            self.register_buffer("dataT_re", self.dataT.real.contiguous())
+            self.register_buffer("dataT_im", self.dataT.imag.contiguous())
         else:
             self.register_buffer("dataT_re", None)
             self.register_buffer("dataT_im", None)
@@ -126,10 +152,23 @@ class BSROperator(AbstractOperator):
     def dtype(self):
         return self.dataT.dtype
 
+    @property
+    def data(self):
+        """The blocks in natural orientation (a transposed view of
+        ``dataT``)."""
+        return self.dataT.transpose(2, 3)
+
+    @property
+    def nnz(self) -> int:
+        """Stored element count (explicit zeros of padding blocks
+        included)."""
+        return int(self.dataT.numel())
+
     # -- construction -------------------------------------------------------
     @classmethod
     def from_dense(cls, H, block_size: int = 128, drop_tol: float = 0.0,
-                   precision="highest", device=None) -> "BSROperator":
+                   use_pallas=None, precision="highest",
+                   device=None) -> "BSROperator":
         H = np.asarray(H)
         n = H.shape[0]
         B = block_size
@@ -147,12 +186,11 @@ class BSROperator(AbstractOperator):
             for t, c in enumerate(cols[:nbpr]):
                 data[r, t] = blocks[r, c]
                 idx[r, t] = c
-        return cls(np.swapaxes(data, 2, 3), idx, n, precision=precision,
-                   device=device)
+        return cls(data, idx, n, precision=precision, device=device)
 
     @classmethod
-    def from_scipy(cls, H, block_size: int = 128, precision="highest",
-                   device=None) -> "BSROperator":
+    def from_scipy(cls, H, block_size: int = 128, use_pallas=None,
+                   precision="highest", device=None) -> "BSROperator":
         """Build from a scipy.sparse matrix without densifying the whole
         matrix at once (block-row streaming)."""
         import scipy.sparse as sp
@@ -176,7 +214,8 @@ class BSROperator(AbstractOperator):
                 ch = min((c + 1) * B, n)
                 dataT[r, t, :ch - cl, :rh - rl] = strip[:, cl:ch].toarray().T
                 idx[r, t] = c
-        return cls(dataT, idx, n, precision=precision, device=device)
+        return cls.from_transposed(dataT, idx, n, precision=precision,
+                                   device=device)
 
     # -- application --------------------------------------------------------
     def _pad(self, x: torch.Tensor, dtype) -> torch.Tensor:

@@ -112,7 +112,8 @@ def main(argv=None):
         (2, op32.n)), dtype=torch.float32, device=dev)
     kw = dict(rtol=0.0, maxiter=args.iters, precond="jacobi")
     for prec in ("highest", "high"):
-        op = bsr.BSROperator(op32.dataT, op32.idx, op32.n, precision=prec)
+        op = bsr.BSROperator.from_transposed(op32.dataT, op32.idx, op32.n,
+                                             precision=prec)
         forms = [("single", lambda: minres(op, b[0], sigma, **kw))]
         for m in (1, 2):
             forms.append((f"lanes m={m}", lambda m=m: minres_batch(

@@ -57,11 +57,13 @@ class PhaseTimer:
 
 
 @contextlib.contextmanager
-def trace(logdir: Optional[str] = None):
+def trace(logdir: Optional[str] = None, host_tracer_level: int = 2):
     """Host and device profiler trace, written as a Chrome trace
     (``{logdir}/trace.json``).  Yields the ``torch.profiler.profile``
     object (``key_averages()`` gives per-kernel sums), or None when
-    ``logdir`` is None (no-op)."""
+    ``logdir`` is None (no-op).  ``host_tracer_level`` is the JAX
+    package's argument, accepted and ignored: ``torch.profiler`` records
+    host operators at one level."""
     if logdir is None:
         yield None
         return

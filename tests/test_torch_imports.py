@@ -44,6 +44,8 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing():
             "eigensolvers_tpu_torch.solvers.fast_lanczos",
             "eigensolvers_tpu_torch.solvers.feast",
             "eigensolvers_tpu_torch.solvers.fast_feast",
+            "eigensolvers_tpu_torch.solvers.chebyshev",
+            "eigensolvers_tpu_torch.solvers.slicing",
             "eigensolvers_tpu_torch.utils.quadrature",
             "eigensolvers_tpu_torch.models.op_parser",
             "eigensolvers_tpu_torch.models.molecules"} <= set(got["modules"])
@@ -69,3 +71,58 @@ def test_op_files_ship_inside_the_package():
     for path in (molecules.PYR4_OP, molecules.CH3CN_OP):
         assert pathlib.Path(path).resolve().parent == data
         assert pathlib.Path(path).stat().st_size > 0
+
+
+# F6: the names the JAX package exports, where it exports them.  Not yet
+# ported (ROADMAP Queue A): the tensor-network backends (A.9), the sharded
+# backend and the distributed layer (A.11), the numpy backend, and the
+# asynchronous checkpoint writer (A.12).
+NOT_PORTED_NAMES = {"MPSVector", "MPO", "TTNSVector", "TTNO", "TreeTopology",
+                    "parseTree", "tree_layout", "als_solve",
+                    "dmrg_eigensolve", "tree_als_solve",
+                    "tree_dmrg_eigensolve", "ShardedVector", "NumpyVector"}
+NOT_PORTED_MODULES = {"parallel", "io"}
+RENAMED = {"JaxVector": "TorchVector"}
+
+
+def _jax_exports():
+    """(module path below the package, names) of every ``__all__`` in the
+    JAX package, read from its sources (no jax import)."""
+    import ast
+    root = PKG.parent / "eigensolvers_tpu"
+    for path in sorted(root.rglob("*.py")):
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, ast.Assign) and any(
+                    getattr(t, "id", None) == "__all__" for t in node.targets):
+                parts = path.relative_to(root).with_suffix("").parts
+                if parts[-1] == "__init__":
+                    parts = parts[:-1]
+                yield ".".join(parts), ast.literal_eval(node.value)
+
+
+def test_jax_exports_import_from_the_same_module_in_the_port():
+    import importlib
+    seen = set()
+    for sub, names in _jax_exports():
+        if sub.split(".")[0] in NOT_PORTED_MODULES:
+            continue
+        mod = importlib.import_module(
+            "eigensolvers_tpu_torch" + ("." + sub if sub else ""))
+        listed = getattr(mod, "__all__", None)
+        for name in names:
+            if name in NOT_PORTED_NAMES:
+                continue
+            mine = RENAMED.get(name, name)
+            assert hasattr(mod, mine), f"{mod.__name__} lacks {mine}"
+            assert listed is None or mine in listed, \
+                f"{mine} not in {mod.__name__}.__all__"
+            seen.add((sub, name))
+    assert ("", "chebyshevFilteredDiagonalization") in seen
+    assert ("solvers", "spectrumSlicingDiagonalization") in seen
+    assert ("ops", "BandedOperator") in seen and ("", "FeastConfig") in seen
+
+
+def test_trace_takes_the_jax_arguments():
+    from eigensolvers_tpu_torch.utils.profiling import trace
+    with trace(None, host_tracer_level=1) as prof:
+        assert prof is None

@@ -160,3 +160,41 @@ def test_smoke_problem_f32_through_lanczos_config(precision):
     assert Y[0].dtype == torch.float32
     assert report["matvecs"] > 0 and st["timers"]["solve"]["calls"] > 0
     assert set(bsr.launches.values()) == {0}
+
+
+def test_block_general_driver_steps_match_jax():
+    """The general driver with a block of two and batched block solves
+    (chip_smoke.py's run (c)) on the smoke slice at an outer basis of 64
+    and an inner DVR of 16, f64, from the same two guesses: the same
+    Krylov steps and restarts in both packages, and the two levels nearest
+    sigma to 1e-6 relative."""
+    M, B = 64, 16
+    H_out = product.anharmonic_oscillator_fbr(M, 1.0, 1e-3)
+    h_in = product.sinc_dvr_oscillator(B, 1.3, (-7.0, 7.0))
+    levels = product.kron_sum_levels(np.linalg.eigvalsh(H_out),
+                                     np.linalg.eigvalsh(h_in), 22)
+    sigma = float(levels[20] + 0.2 * (levels[21] - levels[20]))
+    mine = product.kron_sum_bsr(H_out, h_in, 4, device="cpu")
+    jop = JaxBSR(as_np(mine.data), as_np(mine.idx), mine.n, use_pallas=False)
+    xg = np.linspace(-7.0, 7.0, B)
+    packets = np.stack([xg ** p * np.exp(-xg ** 2 / 2) for p in range(4)])
+    guesses = np.zeros((2, M, B))
+    for s in range(2):
+        guesses[s, :32] = np.random.RandomState(s).standard_normal(
+            (32, 4)) @ packets
+    block = np.linalg.qr(guesses.reshape(2, -1).T)[0].T
+    opts = {"linearSystemArgs": dict(
+        OPTS["linearSystemArgs"], linearIter=20000, linear_tol=1e-2,
+        linear_atol=1e-2, preconditioner="jacobi")}
+    kw = dict(checkFitTol=1e-5, writeOut=False, batchBlockSolves=True)
+    evj, _, stj = jax_lanczos(jop, [JaxVector(b, opts) for b in block],
+                              sigma, 12, 8, 1e-7, **kw)
+    evt, _, stt = lanczos(mine, [TorchVector(b, opts, device="cpu")
+                                 for b in block], sigma, 12, 8, 1e-7, **kw)
+    assert stt["cumIter"] == stj["cumIter"]
+    assert stt["restarts"] == stj["restarts"]
+    assert stt["isConverged"] and stj["isConverged"]
+    for k in (20, 21):
+        for ev in (np.asarray(evj), np.asarray(evt)):
+            assert abs(find_nearest(ev, levels[k])[1] - levels[k]) \
+                <= 1e-6 * levels[k]

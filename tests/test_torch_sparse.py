@@ -202,6 +202,43 @@ def test_constructor_validates_layout():
         bsr.BSROperator(dataT, idx, 97, device=CPU)
 
 
+@pytest.mark.parametrize("n,B", [(64, 16), (90, 32)])
+def test_same_constructor_arguments_build_the_same_operator(n, B):
+    """F5: ``BSROperator(data, idx, n)`` takes the blocks in natural
+    orientation in both packages (the port once took the transposed
+    layout here and built another operator, max |dy| 5.43 at n = 64), and
+    both take ``use_pallas``.  f64, 1e-12; ``data``, ``dataT`` and ``nnz``
+    agree, and ``from_transposed`` of the stored layout is the same
+    operator."""
+    H = np.random.RandomState(n).standard_normal((n, n))
+    H = H + H.T
+    data = np.asarray(JaxBSR.from_dense(H, block_size=B).data)
+    idx = np.asarray(JaxBSR.from_dense(H, block_size=B).idx)
+    jop = JaxBSR(data, idx, n, use_pallas=False)
+    mine = bsr.BSROperator(data, idx, n, use_pallas=False, device=CPU)
+    again = bsr.BSROperator.from_transposed(mine.dataT, mine.idx, n)
+    assert again.dataT.data_ptr() == mine.dataT.data_ptr()
+    x = np.random.RandomState(1).standard_normal(n)
+    X = np.random.RandomState(2).standard_normal((n, 3))
+    for op in (mine, again):
+        np.testing.assert_allclose(as_np(op.matvec(torch.as_tensor(x))),
+                                   np.asarray(jop.matvec(x)), rtol=0,
+                                   atol=1e-12)
+        np.testing.assert_allclose(as_np(op.matmat(torch.as_tensor(X))),
+                                   np.asarray(jop.matmat(X)), rtol=0,
+                                   atol=1e-12)
+    np.testing.assert_allclose(as_np(mine.matvec(torch.as_tensor(x))), H @ x,
+                               rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(as_np(mine.data), np.asarray(jop.data))
+    np.testing.assert_array_equal(as_np(mine.dataT), np.asarray(jop.dataT))
+    assert mine.nnz == jop.nnz == data.size
+    for build in (bsr.BSROperator.from_dense, bsr.BSROperator.from_scipy):
+        op = build(sp.csr_matrix(H) if build is bsr.BSROperator.from_scipy
+                   else H, block_size=B, use_pallas=True, device=CPU)
+        np.testing.assert_allclose(as_np(op.matvec(torch.as_tensor(x))),
+                                   H @ x, rtol=0, atol=1e-12)
+
+
 # B3: nrb % 8 != 0, odd nbpr, and m across the kernel's tiles (up to 32
 # lanes) and its chunk of 32
 @pytest.mark.parametrize("m", [1, 3, 9, 16, 32, 33])

@@ -226,7 +226,7 @@ def test_gmres_on_hermitian_routes_to_minres_and_solve_batch_matches_jax():
 
 def test_f32_vectors_stay_f32():
     _, top = _ops()[0]
-    top32 = type(top)(top.dataT.float(), top.idx, top.n)
+    top32 = type(top).from_transposed(top.dataT.float(), top.idx, top.n)
     tv = [TorchVector(np.random.RandomState(s).rand(96).astype(np.float32),
                       device="cpu") for s in range(3)]
     assert TorchVector.overlapMatrix(tv).dtype == np.float32
