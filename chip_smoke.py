@@ -9,12 +9,13 @@ Phases (any failure raises and the script exits non-zero):
 1. device: requires CUDA (no CPU fallback), prints the card's name and
    power limit, sets and checks TF32 off;
 2. build: compiles the block-ELL kernels from ``csrc/`` with nvcc, one
-   process per source, started together;
+   process per source, and the checkpoint writer with g++, all started
+   together;
 3. kernels vs plain PyTorch on the card, at the slice shape and at ragged
    small shapes, with errors and CUDA-event timings: the single-vector SpMV
    (B1 ``bsr_spmv``, B2 ``bsr_spmv_split``) and the multi-vector product
-   (B3 ``bsr_spmm``, ``bsr_spmm_split``) for m = 1, 2, 4, 8, 12, 16, 32,
-   48 and run (f)'s 64 vectors, and across the kernels' tiles and lane
+   (B3 ``bsr_spmm``, ``bsr_spmm_split``) for m = 1, 2, 4, 6, 8, 12, 16,
+   32, 48 and run (f)'s 64 vectors, and across the kernels' tiles and lane
    chunks (both read the blocks once for up to 32 lanes and run more as
    chunks of 32; B2 is the tensor-core ``bsr_spmm_split`` launched with
    m = 1); the bf16x3 kernels against the exact split product, with a
@@ -62,6 +63,16 @@ Phases (any failure raises and the script exits non-zero):
      moments (gated by the exact window counts), then
      ``spectrumSlicingDiagonalization`` with two windows, (f)'s solve
      options and the polish; every level found once, (f)'s gates;
+   - (l) the N = 8 rung of the CH3CN tree ladder
+     (examples/ch3cn_excited_production.py) on the card: the tree operator
+     and its TTNO, tree DMRG for the ground state and the nu8 pair, then
+     block inexact Lanczos with tree-ALS solves at zpve + 360 cm-1, held
+     to the JAX package's records (artifacts/ch3cn_production.jsonl);
+   - (m) the N = 12 rung seeded from (l)'s states by exact embedding, with
+     every iteration checkpointed through the native writer
+     (``csrc/fastio.cpp``, built with g++) and read back; peak device
+     memory, edge ranks, state bonds, and one line of device-against-host
+     times (applyOp, tree_als_solve) on the card and on the CPU;
 5. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
    and a final JSON status line.
 """
@@ -89,7 +100,9 @@ try:
                                         select_within_range,
                                         spectrumSlicingDiagonalization)
     from eigensolvers_tpu_torch.models import product
-    from eigensolvers_tpu_torch.models.molecules import ch3cn_operator
+    from eigensolvers_tpu_torch.io import fastwriter
+    from eigensolvers_tpu_torch.models.molecules import (ch3cn_operator,
+                                                         ch3cn_tree_operator)
     from eigensolvers_tpu_torch.models.synthetic import known_spectrum_matrix
     from eigensolvers_tpu_torch.ops import kernels, sparse as bsr
     from eigensolvers_tpu_torch.ops.linear_solvers import gmres_splitc_batch
@@ -102,7 +115,14 @@ try:
         chebyshev_moments, window_count_from_moments)
     from eigensolvers_tpu_torch.tools.profile_passes import \
         profile as profile_passes
+    from eigensolvers_tpu_torch.utils import checkpointing
     from eigensolvers_tpu_torch.utils.units import au2unit, unit2au
+    from eigensolvers_tpu_torch.vectors.mps import (host_reads,
+                                                    reset_host_reads)
+    from eigensolvers_tpu_torch.vectors.ttns import (TTNO, TTNSVector,
+                                                     ttns_embed_physical)
+    from eigensolvers_tpu_torch.vectors.ttns_sweeps import (
+        tree_als_solve, tree_dmrg_eigensolve)
     # the slice's operator (n = 262,144; nbpr = 9), the card's rates, the
     # timing and the bound, shared with tools/bench_spmm.py
     from eigensolvers_tpu_torch.tools.yardstick import (
@@ -134,8 +154,8 @@ FEAST_LINEAR = dict(linearSolver="minres", linearIter=2500, linear_tol=1e-3,
                     errorOnNonConvergence=False, escalateIter=0)
 F_LANES = 2 * (FEAST["nc"] // 2) * FEAST["m0"]  # real lanes of one pass
 # B3 at the slice shape: the main path's lane counts ((j)'s m0 = 12, the
-# 48 of (k)'s FEAST windows) among them
-LANES = (1, 2, 4, 8, 12, 16, 32, 48, F_LANES)
+# 48 of (k)'s FEAST windows, the 6 of (k)'s polish) among them
+LANES = (1, 2, 4, 6, 8, 12, 16, 32, 48, F_LANES)
 # run (g): bench.py's FEAST window task (bench_feast) and its oracle
 FEAST_BENCH = dict(n=2048, eMin=1000.25, eMax=1004.75, m0=10, nc=8,
                    eConv=1e-6, maxit=8, oracle=1e-4)
@@ -178,6 +198,37 @@ CH3CN_LANCZOS = dict(L=8, maxit=3, eConv=1e-9, checkFitTol=1e-5)
 CH3CN_LINEAR = dict(linearSolver="minres", linearIter=4000, linear_tol=1e-4,
                     linear_atol=1e-8, preconditioner="jacobi",
                     errorOnNonConvergence=False)
+# runs (l), (m): the CH3CN tree ladder of examples/ch3cn_excited_production.py
+# (N = 8, then N = 12 seeded by exact embedding), the parameters of its
+# records in artifacts/ch3cn_production.jsonl (lines 13 and 14), the rung
+# zero-point energies its driver reads (lines 3 and 10).  The gates: each
+# block eigenvalue within 0.01 cm-1 of the record, the reported residual
+# (1e-6 at N = 8, 1e-7 at N = 12; records 4.4e-8 and 3.5e-9).  The N = 8
+# DMRG zpve is held to 9837.5207: the JAX package and this one, run on the
+# CPU with these parameters, both give 9837.52066; the record's 9837.5615
+# (line 3) is a maxD 6 Lanczos value, 0.041 cm-1 above.
+TREE_TARGET_CM = 360.0
+TREE_L = dict(N=8, maxD=8, L=4, maxit=2, eConv=1e-4, nBlock=2,
+              zpve=9837.5615, ev=(10198.576, 10198.5879), res=1e-6,
+              dmrg=dict(nStates=3, maxD=8, nSweep=8, convTol=1e-9, seed=1),
+              dmrg_zpve=9837.5207)
+TREE_M = dict(N=12, maxD=10, L=10, maxit=20, eConv=1e-6, nBlock=2,
+              zpve=9837.4519, ev=(10198.4882, 10198.4987), res=1e-7)
+TREE_EV_TOL_CM = 0.01
+
+
+def tree_options(maxD, L):
+    """The production script's vector options (ch3cn_excited_production.py
+    :98-107): Krylov bond maxD, fit bond L*maxD, tree-ALS solves."""
+    return {"compressArgs": {"maxD": maxD, "eps": 1e-10},
+            "stateFittingArgs": {"maxD": L * maxD, "eps": 1e-10},
+            "linearSystemArgs": {"linearSolver": "minres", "method": "als",
+                                 "nSweep": 2, "convTol": 1e-4,
+                                 "siteTol": 1e-6, "linearIter": 120,
+                                 "linear_tol": 1e-3, "maxD": maxD,
+                                 "eps": 1e-10}}
+
+
 NO_LIBRARY = ("none: no single PyTorch call computes the bf16x3 product "
               "(x split per element, three bf16 products, xl*lo dropped)")
 # the dense headline task of bench.py (bench_lanczos_headline)
@@ -314,6 +365,22 @@ def kernel_names(fn):
         return [f"not measured ({type(e).__name__}: {e})"]
 
 
+def device_times(fn):
+    """The CUDA kernels one call of ``fn`` runs, with their device time,
+    longest first (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [(getattr(e, "device_time_total", 0), e.key, e.count)
+                for e in prof.key_averages()]
+        return [f"{k[:60]} {t / 1e3:.2f} ms ({n})"
+                for t, k, n in sorted(rows, reverse=True) if t > 0]
+    except Exception as e:                       # the profiler is a reading
+        return [f"not measured ({type(e).__name__}: {e})"]
+
+
 def compare(name, kern, plain, ref, tol, gb, bound_ms, bound_by,
             library=None):
     """Hold a kernel against its plain version (or ``ref``) and time both in
@@ -348,6 +415,196 @@ def compare(name, kern, plain, ref, tol, gb, bound_ms, bound_by,
                 library=lib_note)
 
 
+def wall_ms(fn, reps, dev, warmup=True):
+    """Median host-clock time of ``fn`` in ms, after one warm-up call if
+    ``warmup``, each run ending in a synchronize when ``dev`` is the card
+    (the tensor-network calls read the device to the host as they go, so
+    their time is a host time)."""
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    if warmup:
+        fn()
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def tree_rung(tag, op, topo, guess_tensors, rung, **lanczos_kw):
+    """Block inexact Lanczos on one rung of the CH3CN tree ladder, as the
+    production driver runs it: guesses compressed to the Krylov bond
+    before the solver, orthonormalized; sigma = zpve + 360 cm-1.  Checks
+    the block eigenvalues against the record, the reported residual, that
+    the Ritz states stayed on the card and that each one's <v|H|v> (the
+    TTNO zipper) is its eigenvalue, and prints the run.  Returns
+    (the block's Ritz vectors, sigma)."""
+    report = {}
+    opts = tree_options(rung["maxD"], rung["L"])
+    opts["linearSystemArgs"]["report"] = report
+    guesses = [TTNSVector(ts, opts, topo=topo).normalize().compress()
+               for ts in guess_tensors]
+    guesses = TTNSVector.orthogonalize(guesses)
+    require(len(guesses) == rung["nBlock"], f"{tag}: guess set collapsed")
+    guesses = [g.normalize() for g in guesses]
+    sigma = float(unit2au(rung["zpve"] + TREE_TARGET_CM, "cm-1"))
+    reads0 = dict(host_reads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev, uv, status = inexactLanczosDiagonalization(
+        op, guesses, sigma, L=rung["L"], maxit=rung["maxit"],
+        eConv=rung["eConv"], checkFitTol=1e-4,
+        eShift=float(unit2au(rung["zpve"], "cm-1")), convertUnit="cm-1",
+        writeOut=False, **lanczos_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reads = {k: host_reads[k] - reads0[k] for k in host_reads}
+    ev = np.real(np.asarray(ev))
+    order = np.argsort(np.abs(ev - sigma))[:rung["nBlock"]]
+    picks = order[np.argsort(ev[order])]
+    ev_cm = [float(au2unit(ev[k], "cm-1")) for k in picks]
+    W = TTNSVector._mpo(uv[0], op)
+    rq_cm = [float(au2unit(np.real(W.sandwich(uv[k].tensors, uv[k].tensors)
+                                   / uv[k].vdot(uv[k])), "cm-1"))
+             for k in picks]
+    res = float(status.get("residual", np.nan))
+    print(f"[tree {tag}] N={rung['N']} maxD {rung['maxD']} L {rung['L']} "
+          f"nBlock {rung['nBlock']}: ev {', '.join(f'{e:.4f}' for e in ev_cm)}"
+          f" cm-1 (record {', '.join(str(e) for e in rung['ev'])}, tol "
+          f"{TREE_EV_TOL_CM}), excitations "
+          f"{', '.join(f'{e - rung['zpve']:.4f}' for e in ev_cm)}; <v|H|v> "
+          f"of the fitted states (zipper) {', '.join(f'{e:.4f}' for e in rq_cm)}"
+          f"; residual {res:.3e} (tol {rung['res']:.0e}); converged "
+          f"{status['isConverged']} after {status['cumIter']} Krylov steps, "
+          f"{report.get('solves', 0)} ALS solves; wall {wall:.2f} s; state "
+          f"bonds {[[int(t.shape[0]) for t in uv[k].tensors[1:]] for k in picks]};"
+          f" host reads {reads}", flush=True)
+    require(all(abs(a - b) <= TREE_EV_TOL_CM for a, b in zip(ev_cm, rung["ev"])),
+            f"{tag}: eigenvalues {ev_cm} cm-1, record {rung['ev']}")
+    require(res <= rung["res"], f"{tag}: residual {res:.3e}")
+    require(all(abs(a - b) <= TREE_EV_TOL_CM for a, b in zip(rq_cm, ev_cm)),
+            f"{tag}: <v|H|v> {rq_cm} of the returned states, ev {ev_cm}")
+    require(all(t.is_cuda and bool(torch.isfinite(t).all())
+                for k in picks for t in uv[k].tensors),
+            f"{tag}: Ritz states left the card or are not finite")
+    return [uv[k] for k in range(rung["nBlock"])], sigma, wall
+
+
+def tree_ladder(dev):
+    """Runs (l) and (m): the CH3CN tree ladder on the card.  Returns the
+    phase walls."""
+    walls = {}
+    # (l): N = 8: DMRG for the ground state and the nu8 pair, then the block
+    # Lanczos on the pair
+    t0 = time.perf_counter()
+    rung = TREE_L
+    op8, topo, parts8, _ = ch3cn_tree_operator(N=rung["N"], device=dev)
+    ttno8 = TTNO.from_sop_compressed(topo, op8)
+    op8._ttno_cache = {(topo, None): ttno8}       # the solver's own TTNO
+    t_build = time.perf_counter() - t0
+    dims8 = [rung["N"] ** len(p) for p in parts8]
+    reset_host_reads()
+    t0 = time.perf_counter()
+    es, xs = tree_dmrg_eigensolve(topo, ttno8.tensors, dims8,
+                                  maxD=rung["dmrg"]["maxD"],
+                                  nStates=rung["dmrg"]["nStates"],
+                                  nSweep=rung["dmrg"]["nSweep"],
+                                  convTol=rung["dmrg"]["convTol"],
+                                  seed=rung["dmrg"]["seed"])
+    torch.cuda.synchronize()
+    t_dmrg = time.perf_counter() - t0
+    es_cm = [float(au2unit(e, "cm-1")) for e in es]
+    print(f"[tree (l)] CH3CN tree N={rung['N']}: dims {dims8}, TTNO edge "
+          f"ranks {ttno8.ranks} (operator + TTNO {t_build:.2f} s); DMRG "
+          f"maxD {rung['dmrg']['maxD']}: zpve {es_cm[0]:.4f} cm-1 (tol "
+          f"{TREE_EV_TOL_CM} of {rung['dmrg_zpve']}), excited guesses "
+          f"{', '.join(f'{e - es_cm[0]:.4f}' for e in es_cm[1:])} cm-1 above "
+          f"it; {t_dmrg:.2f} s, host reads {dict(host_reads)}", flush=True)
+    require(abs(es_cm[0] - rung["dmrg_zpve"]) <= TREE_EV_TOL_CM,
+            f"(l) DMRG zpve {es_cm[0]:.4f}")
+    require(all(t.is_cuda for x in xs for t in x), "(l) DMRG left the card")
+    seeds, _, wall = tree_rung("(l)", op8, topo, xs[1:1 + rung["nBlock"]],
+                               rung)
+    walls["(l) DMRG"], walls["(l) Lanczos"] = t_dmrg, wall
+    del op8, ttno8, xs
+
+    # (m): N = 12 from (l)'s states, embedded exactly; checkpoints of every
+    # iteration through the native writer
+    rung = TREE_M
+    op12, topo, parts12, _ = ch3cn_tree_operator(N=rung["N"], device=dev)
+    ttno = TTNO.from_sop_compressed(topo, op12)
+    op12._ttno_cache = {(topo, None): ttno}
+    guess = [ttns_embed_physical(v.tensors, parts12, TREE_L["N"], rung["N"])
+             for v in seeds]
+    writer = checkpointing.default_async_writer()
+    require(writer is not None and writer.available,
+            "(m) the native checkpoint writer was not built")
+    submitted = writer.submitted
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 1e9
+    reset_host_reads()
+    with tempfile.TemporaryDirectory() as d:
+        uv, sigma, wall = tree_rung("(m)", op12, topo, guess, rung,
+                                    saveEachIteration=True, saveDir=d)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        tag = checkpointing.latest_tag(d)
+        files = sorted(os.listdir(d))
+        vecs, meta = checkpointing.load_checkpoint(d, tag, TTNSVector,
+                                                   device=dev)
+    jobs = writer.submitted - submitted
+    print(f"[tree (m)] checkpoints: {jobs} files through the native writer "
+          f"({len(files)} on disk), last tag {tag} holds {len(vecs)} tree "
+          f"states, status cumIter {meta['status'].get('cumIter')}; TTNO "
+          f"edge ranks {ttno.ranks}; peak device memory {peak:.3f} GB, "
+          f"{peak - base:.3f} GB above the {base:.3f} GB allocated before "
+          f"the run", flush=True)
+    require(jobs == len(files) and jobs > 0 and tag is not None
+            and meta["status"].get("cumIter") == tag
+            and all(v.topo == topo and all(torch.isfinite(t).all()
+                                           for t in v.tensors) for v in vecs),
+            f"(m) checkpoints: {jobs} jobs, files {files}")
+    walls["(m) Lanczos"] = wall
+
+    # device against host (ROADMAP A.10): one applyOp (apply, then compress
+    # to bond 10) and one tree_als_solve at (m)'s options, on the card and
+    # on the CPU, the same TTNO and state
+    cpu = torch.device("cpu")
+    opts = tree_options(rung["maxD"], rung["L"])
+    v = TTNSVector(guess[0], opts, topo=topo).normalize().compress()
+    lin = opts["linearSystemArgs"]
+    als = dict(sign=1.0, maxD=lin["maxD"], eps=lin["eps"],
+               nSweep=lin["nSweep"], convTol=lin["convTol"],
+               local_tol=lin["siteTol"], local_maxiter=lin["linearIter"])
+    line = []
+    # the CPU takes ~1 minute per solve at this size: one timed call
+    for where, W, x, reps in ((dev, ttno, v, (5, 3)), (cpu, TTNO(topo, [
+            t.cpu() for t in ttno.tensors]), TTNSVector(
+                [t.cpu() for t in v.tensors], opts, topo=topo), (3, 1))):
+        warm = where.type == "cuda"
+        calls = [r + warm for r in reps]
+        reset_host_reads()
+        apply_ms = wall_ms(lambda: x.applyOp(W), reps[0], where, warm)
+        per_apply = {k: n // calls[0] for k, n in host_reads.items()}
+        reset_host_reads()
+        als_ms = wall_ms(lambda: tree_als_solve(topo, W.tensors, x.tensors,
+                                                sigma, **als), reps[1],
+                         where, warm)
+        per_solve = {k: n // calls[1] for k, n in host_reads.items()}
+        line.append(f"{where.type}: applyOp {apply_ms:.2f} ms ({per_apply}),"
+                    f" tree_als_solve {als_ms:.1f} ms ({per_solve})")
+    print(f"[tree A.10] bond {v.maxD}, N={rung['N']}, medians of "
+          f"5 / 3 (card) and 3 / 1 (CPU) calls, host clock, CPU threads "
+          f"{torch.get_num_threads()}: " + "; ".join(line), flush=True)
+    print(f"[tree A.10] one applyOp on the card, device time by kernel: "
+          f"{'; '.join(device_times(lambda: v.applyOp(ttno))[:4])}",
+          flush=True)
+    return walls
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -368,13 +625,14 @@ def main():
 
     # -- 2. build: one nvcc per source, all started together -----------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels.LIBRARIES)) as pool:
+    with ThreadPoolExecutor(len(kernels.LIBRARIES) + 1) as pool:
         builds = [pool.submit(f) for f in kernels.LIBRARIES]
+        builds.append(pool.submit(fastwriter.build))
         for b in builds:
             b.result()
     print(f"[build] {', '.join(sorted(p.name for p in kernels.CSRC.glob('*.cu')))}"
-          f" with {kernels.nvcc_path()}: {time.perf_counter() - t0:.2f} s",
-          flush=True)
+          f" with {kernels.nvcc_path()}, fastio.cpp with g++: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # -- 3. kernels vs plain ------------------------------------------------
     t0 = time.perf_counter()
@@ -1211,6 +1469,17 @@ def main():
               f"{k} {v:.2f} s" for k, v in walls.items()), flush=True)
     for k, v in totals.items():
         require(v > 0, f"{k} was never launched by the main path")
+
+    # (l), (m): the CH3CN tree ladder; tensor-network contractions through
+    # torch (cuBLAS, cuSOLVER), no BSR kernel
+    bsr.reset_launch_counts()
+    t0 = time.perf_counter()
+    tree_walls = tree_ladder(dev)
+    require(not any(bsr.launches.values()),
+            f"(l), (m) launched BSR kernels: {dict(bsr.launches)}")
+    print(f"[tree] phases (l), (m) {time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in tree_walls.items()),
+          flush=True)
 
     # -- 5. results ---------------------------------------------------------
     src = "eigensolvers_tpu_torch/csrc/"

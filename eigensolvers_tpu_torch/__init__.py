@@ -3,7 +3,8 @@
 Computes a few interior eigenpairs of large Hermitian operators near a
 target energy with inexact shift-and-invert Lanczos, and every eigenpair
 in a window with FEAST, the Chebyshev-filtered window solver and spectrum
-slicing, written against the
+slicing, over dense vectors or compressed tensor-network states (MPS and
+tree tensor networks), written against the
 same ``AbstractVector`` contract, entry points, status keys and output
 files as the JAX package ``eigensolvers_tpu`` beside it.
 
@@ -31,6 +32,12 @@ from .solvers.feast import feastDiagonalization
 from .solvers.chebyshev import chebyshevFilteredDiagonalization
 from .solvers.slicing import spectrumSlicingDiagonalization
 from .utils.quadrature import quadraturePointsWeights
+from .vectors.mps import MPSVector, MPO
+from .vectors.ttns import (TTNSVector, TTNO, TreeTopology, parseTree,
+                           tree_layout)
+from .vectors.mps_sweeps import als_solve, dmrg_eigensolve
+from .vectors.ttns_sweeps import tree_als_solve, tree_dmrg_eigensolve
+from .vectors.numpy_backend import NumpyVector
 from .utils.subspace import (
     basisTransformation,
     calculateTarget,
@@ -57,6 +64,18 @@ __all__ = [
     "SumOfProductOperator",
     "BSROperator",
     "TorchVector",
+    "MPSVector",
+    "MPO",
+    "TTNSVector",
+    "TTNO",
+    "TreeTopology",
+    "parseTree",
+    "tree_layout",
+    "als_solve",
+    "dmrg_eigensolve",
+    "tree_als_solve",
+    "tree_dmrg_eigensolve",
+    "NumpyVector",
     "LINDEP_DEFAULT_VALUE",
     "as_operator",
     "inexactLanczosDiagonalization",

@@ -11,9 +11,9 @@ Problem parity:
     reference examples/ttns2_ch3cn.py:25-34).
 
 Modes use harmonic-oscillator bases in dimensionless normal coordinates;
-the electronic mode is a discrete 2-state basis.  The JAX package's
-``ch3cn_tree`` and ``ch3cn_tree_operator`` come with the tree
-tensor-network backend.
+the electronic mode is a discrete 2-state basis.  ``ch3cn_tree`` and
+``ch3cn_tree_operator`` give the CH3CN Hamiltonian on the production tree
+layout of the tree tensor-network backend.
 """
 
 from __future__ import annotations
@@ -85,3 +85,43 @@ def ch3cn_operator(N: int = 42, nModesCut: Optional[int] = None,
     op = build_sop_operator(spec, bases, dtype=dtype, term_chunk=term_chunk,
                             fuse=fuse, device=device)
     return op, spec, bases
+
+
+def ch3cn_tree():
+    """The reference's production CH3CN tree layout
+    (reference: examples/ttns2_ch3cn_Block.py:62-76 — a 3-branch tree with
+    fused 2-mode leaves and coordinate-free internal nodes, here mapped
+    onto the one-(super-)mode-per-node tree backend with dim-1 virtual
+    nodes).  Mode indices are 0-based (x1..x12 -> 0..11).
+
+    :returns: (TreeTopology, parts) — pass ``parts`` as
+        ``build_sop_operator(mode_parts=...)`` / use ``ch3cn_tree_operator``.
+    """
+    from ..vectors.ttns import tree_layout
+    layout = ([], [
+        ([], [([0], []),
+              ([4, 5], [])]),
+        ([], [([6, 7], []),
+              ([8, 9], [])]),
+        ([], [([], [([2], []),
+                    ([], [([1], []),
+                          ([3], [])])]),
+              ([], [([10, 11], [])])]),
+    ])
+    return tree_layout(layout)
+
+
+def ch3cn_tree_operator(N: int = 42, dtype=np.float64, device=None):
+    """CH3CN operator regrouped onto the production tree layout.
+
+    :param device: where the factors go (default: the card)
+    :returns: (GroupedSoPOperator over the tree's node dims, TreeTopology,
+        parts, bases)
+    """
+    spec = parse_op_file(CH3CN_OP)
+    topo, parts = ch3cn_tree()
+    bases = [Hermite(Hermite.getOptions(N=N, representation="fbr"))
+             for _ in range(spec.nModes)]
+    op = build_sop_operator(spec, bases, dtype=dtype, mode_parts=parts,
+                            device=device)
+    return op, topo, parts, bases

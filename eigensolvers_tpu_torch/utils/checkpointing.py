@@ -17,14 +17,26 @@ from typing import List, Optional
 import numpy as np
 
 
-def default_async_writer():
-    """The process-shared native async checkpoint writer, or None.
+_DEFAULT_WRITER = None
+_DEFAULT_WRITER_TRIED = False
 
-    This package has no native writer yet (ROADMAP Queue A, "Checkpoint
-    writer"), so this returns None and ``save_checkpoint`` writes
-    synchronously.  It must not reach the JAX package's ``io`` module,
-    whose import pulls in jax."""
-    return None
+
+def default_async_writer():
+    """Process-shared :class:`~eigensolvers_tpu_torch.io.fastwriter.AsyncWriter`,
+    or None when the native library cannot be built (the sync fallback
+    inside save_checkpoint then applies).  Used by the solvers'
+    ``saveEachIteration`` paths so per-iteration checkpoints ride the
+    native worker thread instead of blocking the solve loop."""
+    global _DEFAULT_WRITER, _DEFAULT_WRITER_TRIED
+    if not _DEFAULT_WRITER_TRIED:
+        _DEFAULT_WRITER_TRIED = True
+        try:
+            from ..io.fastwriter import AsyncWriter
+            w = AsyncWriter()
+            _DEFAULT_WRITER = w if w.available else None
+        except Exception:
+            _DEFAULT_WRITER = None
+    return _DEFAULT_WRITER
 
 
 def save_checkpoint(saveDir: str, tag, vectors: List, status: dict,

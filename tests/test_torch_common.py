@@ -153,4 +153,5 @@ def test_checkpoints_cross_between_packages(tmp_path):
         np.testing.assert_array_equal(as_np(tv.array), a)
     assert jmeta["status"] == tmeta["status"]
     assert torch_ckpt.latest_tag(str(tmp_path / "j")) == 5
-    assert torch_ckpt.default_async_writer() is None
+    writer = torch_ckpt.default_async_writer()
+    assert writer is not None and writer.available

@@ -343,3 +343,64 @@ def test_complex_vectors_on_real_blocks_take_b3(dev, precision, dtype, tol):
     for got, ref in ((y, dense @ Xh[0]), (Y, Xh @ dense.T)):
         got = got.cpu().numpy()
         assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
+
+
+# ---------------------------------------------------------------------------
+# tensor networks on the card (cuBLAS / cuSOLVER through torch; no kernel of
+# this package) against the same code on device="cpu", to 1e-9
+# ---------------------------------------------------------------------------
+TN_DIMS = [3, 2, 3, 3, 3, 5]
+
+
+def _tn_operator(device):
+    from eigensolvers_tpu_torch import SumOfProductOperator
+    from eigensolvers_tpu_torch.models.synthetic import random_sop_terms
+    terms = random_sop_terms(nDim=6, dims=TN_DIMS, nSum=3, seed=1212)
+    return SumOfProductOperator.from_terms(6, TN_DIMS, terms, device=device)
+
+
+def test_mps_chain_dmrg_and_als_on_the_card(dev):
+    """Chain DMRG eigenvalues and an ALS solve on the card equal the CPU
+    run's to 1e-9; the states stay on the card."""
+    from eigensolvers_tpu_torch.vectors import mps, mps_sweeps
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        W = mps.MPO.from_sop_compressed(_tn_operator(d))
+        ev, xs = mps_sweeps.dmrg_eigensolve(W.tensors, TN_DIMS, nStates=2,
+                                            maxD=60, nSweep=30,
+                                            convTol=1e-13, seed=3)
+        b = mps.mps_random(TN_DIMS, 4, seed=9, device=d)
+        x = mps_sweeps.als_solve(W.tensors, b, 3.7, maxD=80, eps=1e-12,
+                                 nSweep=20, convTol=1e-10, local_tol=1e-10)
+        assert all(t.device.type == d.type for t in xs[1] + x)
+        out[d.type] = (np.asarray(ev), mps.mps_dense(x).cpu().numpy())
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-9)
+    ref = out["cpu"][1]
+    assert np.abs(out["cuda"][1] - ref).max() <= 1e-9 * np.abs(ref).max()
+
+
+def test_ttns_lanczos_on_the_card(dev):
+    """Inexact Lanczos on tree states with tree-ALS solves: the card's Ritz
+    value nearest sigma equals the CPU run's to 1e-9, and so does the
+    zipper sandwich of a fitted state."""
+    from eigensolvers_tpu_torch import (find_nearest,
+                                        inexactLanczosDiagonalization)
+    from eigensolvers_tpu_torch.vectors.ttns import TTNSVector, TreeTopology
+    topo = TreeTopology((-1, 0, 0, 2, 2, 4))
+    opts = {"compressArgs": {"maxD": 60, "eps": 1e-10},
+            "linearSystemArgs": {"method": "als", "nSweep": 10,
+                                 "convTol": 1e-10, "siteTol": 1e-10,
+                                 "linearIter": 300, "linear_tol": 1e-8,
+                                 "maxD": 60, "eps": 1e-10}}
+    got = {}
+    for d in (torch.device("cpu"), dev):
+        op = _tn_operator(d)
+        y0 = TTNSVector.random(topo, TN_DIMS, 8, opts, seed=11, device=d)
+        ev, uv, _ = inexactLanczosDiagonalization(op, y0, 0.95, 8, 4, 1e-10,
+                                                  writeOut=False)
+        W = y0._mpo(op)
+        k = int(np.argmin(np.abs(np.asarray(ev) - 0.95)))
+        assert uv[k].tensors[0].device.type == d.type
+        got[d.type] = (find_nearest(ev, 0.95)[1],
+                       W.sandwich(uv[k].tensors, uv[k].tensors))
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-9)

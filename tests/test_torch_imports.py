@@ -48,7 +48,14 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing():
             "eigensolvers_tpu_torch.solvers.slicing",
             "eigensolvers_tpu_torch.utils.quadrature",
             "eigensolvers_tpu_torch.models.op_parser",
-            "eigensolvers_tpu_torch.models.molecules"} <= set(got["modules"])
+            "eigensolvers_tpu_torch.models.molecules",
+            "eigensolvers_tpu_torch.vectors.mps",
+            "eigensolvers_tpu_torch.vectors.mps_sweeps",
+            "eigensolvers_tpu_torch.vectors.ttns",
+            "eigensolvers_tpu_torch.vectors.ttns_sweeps",
+            "eigensolvers_tpu_torch.vectors.numpy_backend",
+            "eigensolvers_tpu_torch.io",
+            "eigensolvers_tpu_torch.io.fastwriter"} <= set(got["modules"])
     assert got["built"] == 0 and not got["triton"]
 
 
@@ -74,14 +81,10 @@ def test_op_files_ship_inside_the_package():
 
 
 # F6: the names the JAX package exports, where it exports them.  Not yet
-# ported (ROADMAP Queue A): the tensor-network backends (A.9), the sharded
-# backend and the distributed layer (A.11), the numpy backend, and the
-# asynchronous checkpoint writer (A.12).
-NOT_PORTED_NAMES = {"MPSVector", "MPO", "TTNSVector", "TTNO", "TreeTopology",
-                    "parseTree", "tree_layout", "als_solve",
-                    "dmrg_eigensolve", "tree_als_solve",
-                    "tree_dmrg_eigensolve", "ShardedVector", "NumpyVector"}
-NOT_PORTED_MODULES = {"parallel", "io"}
+# ported (ROADMAP Queue A): the sharded backend and the distributed layer
+# (A.11).
+NOT_PORTED_NAMES = {"ShardedVector"}
+NOT_PORTED_MODULES = {"parallel"}
 RENAMED = {"JaxVector": "TorchVector"}
 
 
@@ -120,6 +123,8 @@ def test_jax_exports_import_from_the_same_module_in_the_port():
     assert ("", "chebyshevFilteredDiagonalization") in seen
     assert ("solvers", "spectrumSlicingDiagonalization") in seen
     assert ("ops", "BandedOperator") in seen and ("", "FeastConfig") in seen
+    assert ("", "TTNSVector") in seen and ("io", "AsyncWriter") in seen
+    assert ("", "tree_dmrg_eigensolve") in seen and ("", "NumpyVector") in seen
 
 
 def test_trace_takes_the_jax_arguments():
