@@ -73,6 +73,22 @@ Phases (any failure raises and the script exits non-zero):
      (``csrc/fastio.cpp``, built with g++) and read back; peak device
      memory, edge ranks, state bonds, and one line of device-against-host
      times (applyOp, tree_als_solve) on the card and on the CPU;
+   - (n0) row-block launches on the slice operator: B1, B2, B3 f32 at m =
+     2, 16, 64 and B3 f64 at m = 48 on 4 ranges of 512 block rows with the
+     whole x, each bitwise equal to the matching rows of the square launch
+     and held to its plain rectangular version; one range timed beside
+     its bound; the square B1 and B3 (m = 2, 64) re-timed beside the
+     times PERF.md's kernel table records;
+   - (n) the sharded backend (``eigensolvers_tpu_torch.parallel``) on
+     NCCL, one process of world size 1 (the group joined here through a
+     file store in a temporary directory): (n1) the single-vector
+     "highest" Lanczos and (n2) the fused driver with nBlock 2 through
+     ``shard_operator`` and ``ShardedVector``, each with the Krylov steps,
+     MINRES iterations and (within 1e-10) levels of its unsharded run
+     above, the same gates, the launches, and the collectives per step;
+   - (p) the port's entry points (``graft_entry``): ``entry()``'s fused
+     step, ``dryrun_multichip(1)``, and ``weak_scaling(1)``'s collective
+     counts, held to the counts the CPU tests pin at 2 and 4 gloo ranks;
 5. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
    and a final JSON status line.
 """
@@ -90,6 +106,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 try:
@@ -99,6 +116,7 @@ try:
                                         inexactLanczosDiagonalization,
                                         select_within_range,
                                         spectrumSlicingDiagonalization)
+    from eigensolvers_tpu_torch import graft_entry
     from eigensolvers_tpu_torch.models import product
     from eigensolvers_tpu_torch.io import fastwriter
     from eigensolvers_tpu_torch.models.molecules import (ch3cn_operator,
@@ -107,6 +125,11 @@ try:
     from eigensolvers_tpu_torch.ops import kernels, sparse as bsr
     from eigensolvers_tpu_torch.ops.linear_solvers import gmres_splitc_batch
     from eigensolvers_tpu_torch.ops.operators import DenseOperator
+    from eigensolvers_tpu_torch.parallel import (ShardedVector,
+                                                 collective_counts,
+                                                 make_mesh,
+                                                 reset_collective_counts,
+                                                 shard_operator)
     from eigensolvers_tpu_torch.solvers.fast_lanczos import \
         fastLanczosDiagonalization
     from eigensolvers_tpu_torch.solvers import chebyshev as cheb
@@ -215,6 +238,16 @@ TREE_L = dict(N=8, maxD=8, L=4, maxit=2, eConv=1e-4, nBlock=2,
 TREE_M = dict(N=12, maxD=10, L=10, maxit=20, eConv=1e-6, nBlock=2,
               zpve=9837.4519, ev=(10198.4882, 10198.4987), res=1e-7)
 TREE_EV_TOL_CM = 0.01
+# run (n0): the slice operator's 2048 block rows in 4 ranges of 512, each
+# launched with the whole x; the square B1 / B3 times that PERF.md's
+# kernel table records (section 6, NVIDIA H100 80GB HBM3, 700.00 W)
+# beside this run's
+ROW_RANGES = 4
+RECORDED_MS = {("bsr_spmv f32", 1): 0.4680, ("bsr_spmm f32", 2): 0.4328,
+               ("bsr_spmm f32", 64): 1.1764}
+# run (n): the sharded levels against the unsharded run's (the same
+# arithmetic with one rank: all-reduces and all-gathers of one rank copy)
+SHARDED_RTOL = 1e-10
 
 
 def tree_options(maxD, L):
@@ -605,6 +638,103 @@ def tree_ladder(dev):
     return walls
 
 
+def row_blocks(op32, op64, op_high, dev):
+    """(n0): each kernel launched on ROW_RANGES ranges of block rows with
+    the whole x (``ncb`` = nrb) against the rows of its square launch
+    (bitwise) and its plain rectangular version; range 0 timed beside its
+    bound (that range's blocks + idx, the whole x, the local y); the square
+    B1 and B3 (m = 2, 64) re-timed.  Launches made here are checks, not
+    main-path runs: the caller zeroes the counters after."""
+    nrb, nbpr, B, _ = op32.dataT.shape
+    npad, per = nrb * B, nrb // ROW_RANGES
+    rng = np.random.RandomState(8)
+    X64 = torch.as_tensor(rng.standard_normal((64, npad)), device=dev)
+    X32 = X64.float()
+    idx = op32.idx
+    hi, lo = op_high.dataT_hi, op_high.dataT_lo
+    stol = split_tol(nbpr, B)
+
+    def x_of(dtype, m):
+        return (X64 if dtype == "f64" else X32)[:m].contiguous() if m > 1 \
+            else X32[0].contiguous()
+
+    # (name, m, kind, blocks, x, kernel, plain reference, tolerance)
+    cases = []
+    for name, m, kind in (("bsr_spmv f32", 1, "f32"),
+                          ("bsr_spmv_split", 1, "split"),
+                          ("bsr_spmm f32", 2, "f32"),
+                          ("bsr_spmm f32", 16, "f32"),
+                          ("bsr_spmm f32", 64, "f32"),
+                          ("bsr_spmm f64", 48, "f64")):
+        X = x_of(kind, m)
+        if name == "bsr_spmv_split":
+            blocks = (hi, lo)
+            kern = lambda bl, i, x, **kw: bsr.bsr_matvec_split(  # noqa: E731
+                *bl, i, x, **kw)
+            plain = lambda bl, i, x: bsr.bsr_matvec_split_plain(  # noqa: E731
+                *bl, i, x, acc=torch.float64)
+            tol = stol
+        elif m == 1:
+            blocks = (op32.dataT,)
+            kern = lambda bl, i, x, **kw: bsr.bsr_matvec(  # noqa: E731
+                *bl, i, x, **kw)
+            plain = lambda bl, i, x: bsr.bsr_matvec_plain(  # noqa: E731
+                *bl, i, x)
+            tol = KERNEL_TOL["f32"]
+        else:
+            blocks = (op64.dataT if kind == "f64" else op32.dataT,)
+            kern = lambda bl, i, x, **kw: bsr.bsr_matmat(  # noqa: E731
+                *bl, i, x, **kw)
+            plain = lambda bl, i, x: bsr.bsr_matmat_plain(  # noqa: E731
+                *bl, i, x)
+            tol = KERNEL_TOL[kind]
+        cases.append((name, m, kind, blocks, X, kern, plain, tol))
+
+    rows_out = []
+    for name, m, kind, blocks, X, kern, plain, tol in cases:
+        Y = kern(blocks, idx, X)
+        torch.cuda.synchronize()
+        errs = []
+        for k in range(ROW_RANGES):
+            r0, r1 = k * per, (k + 1) * per
+            bl = tuple(b[r0:r1] for b in blocks)
+            Yr = kern(bl, idx[r0:r1], X, ncb=nrb)
+            torch.cuda.synchronize()
+            same = torch.equal(Yr, Y[..., r0 * B:r1 * B])
+            require(same, f"(n0) {name} m={m} rows [{r0}, {r1}): not equal "
+                    f"to the square launch's rows")
+            err = relerr(Yr, plain(bl, idx[r0:r1], X))
+            require(err <= tol, f"(n0) {name} m={m} rows [{r0}, {r1}): rel "
+                    f"err {err:.3e} > {tol:.0e}")
+            errs.append(err)
+        bl = tuple(b[:per] for b in blocks)
+        ms_k = min(time_ms(lambda: kern(bl, idx[:per], X, ncb=nrb)),
+                   time_ms(lambda: kern(bl, idx[:per], X, ncb=nrb)))
+        ms_p = time_ms(lambda: plain(bl, idx[:per], X), reps=5)
+        size = 8 if kind == "f64" else 4
+        elems = bl[0].numel()
+        b_ms, b_by = bound(elems * size, per * nbpr * 4, m, npad, size,
+                           (6 if kind == "split" else 2) * elems * m,
+                           PEAK_FLOPS["bf16" if kind == "split" else kind],
+                           npad_out=per * B)
+        rows_out.append(dict(name=name, m=m, ms=ms_k, plain_ms=ms_p,
+                             bound_ms=b_ms, bound_by=b_by, err=max(errs)))
+        print(f"[n0] {name} m={m}: {ROW_RANGES} row blocks of {per} block "
+              f"rows, each bitwise equal to the square launch's rows; rel "
+              f"err against the plain rectangular version "
+              f"{max(errs):.3e} (tol {tol:.0e}); rows [0, {per}): kernel "
+              f"{ms_k:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{b_ms / ms_k:.0%}), plain {ms_p:.4f} ms", flush=True)
+    for (name, m), rec in RECORDED_MS.items():
+        X = x_of("f32", m)
+        ms = min(time_ms(lambda: (bsr.bsr_matvec if m == 1 else
+                                  bsr.bsr_matmat)(op32.dataT, idx, X))
+                 for _ in range(2))
+        print(f"[n0] square {name} m={m} re-timed: {ms:.4f} ms (PERF.md "
+              f"section 6 records {rec:.4f} ms)", flush=True)
+    return rows_out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -975,6 +1105,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     totals = dict.fromkeys(bsr.launches, 0)
     walls = {}
+    refs = {}           # the unsharded runs that (n) repeats
     # inexact Lanczos, one vector: B1 / B2 for the solves and extends, B3
     # for the projected H at the start and after each restart
     for prec, op, single, multi, case in (
@@ -994,6 +1125,7 @@ def main():
         require("startingPoint" in summary and "endingPoint" in summary,
                 f"{prec}: summary_lanczos.out lacks its sentinels")
         tag = f"{prec}, nBlock 1"
+        refs[tag] = (np.asarray(ev), status, report)
         check_states(tag, prec, ev, Y, [float(levels[TARGET_LEVEL])])
         report_line(tag, status, report, wall, unconv)
         extends = status["timers"]["extend_subspace"]["calls"]
@@ -1020,6 +1152,7 @@ def main():
         (ev, Y, status), wall, counts, unconv = run(
             fastLanczosDiagonalization, op, vectors(block, report), sigma,
             LANCZOS["L"], LANCZOS["maxit"], LANCZOS["eConv"])
+        refs[tag] = (np.asarray(ev), status, report)
         check_states(tag, prec, ev, Y, nearest(NBLOCK))
         report_line(tag, status, report, wall, unconv)
         check_counts(tag, counts, {multi: report["matmats"]})
@@ -1480,6 +1613,125 @@ def main():
     print(f"[tree] phases (l), (m) {time.perf_counter() - t0:.2f} s: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in tree_walls.items()),
           flush=True)
+
+    # (n0): row-block launches (checks; the counters are zeroed after)
+    t0 = time.perf_counter()
+    rect_rows = row_blocks(op32, op64, op_high, dev)
+    bsr.reset_launch_counts()
+    print(f"[n0] {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # (n): the sharded backend on NCCL, one process of world size 1
+    store = tempfile.mkdtemp(prefix="chip_smoke_store")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        require(mesh.device.type == "cuda" and dist.get_backend() == "nccl"
+                and mesh.shape == {"b": 1, "x": 1}, f"(n) mesh {mesh}")
+        sop32 = shard_operator(op32, mesh)
+        require(isinstance(sop32.local, bsr.BSROperator)
+                and sop32.local.dataT.data_ptr() == op32.dataT.data_ptr(),
+                "(n) the row block of one rank is not the slice's blocks")
+
+        def svectors(rows, report):
+            opts = {"linearSystemArgs": dict(LINEAR, report=report)}
+            return [ShardedVector(torch.as_tensor(r, dtype=torch.float32,
+                                                  device=dev), opts,
+                                  mesh=mesh) for r in rows]
+
+        for tag, ref_tag, fn, args, kw, want in (
+                ("(n1) sharded highest, nBlock 1", "highest, nBlock 1",
+                 inexactLanczosDiagonalization, lambda r: (
+                     sop32, svectors(block[:1], r)[0], sigma),
+                 dict(writeOut=False, **LANCZOS),
+                 [float(levels[TARGET_LEVEL])]),
+                ("(n2) sharded fast highest, nBlock 2",
+                 "(a) fast highest, nBlock 2", fastLanczosDiagonalization,
+                 lambda r: (sop32, svectors(block, r), sigma, LANCZOS["L"],
+                            LANCZOS["maxit"], LANCZOS["eConv"]), {},
+                 nearest(NBLOCK))):
+            report = {}
+            call_args = args(report)
+            reset_collective_counts()
+            (ev, Y, status), wall, counts, unconv = run(fn, *call_args, **kw)
+            coll = collective_counts()
+            ev_ref, st_ref, rep_ref = refs[ref_tag]
+            ev = np.asarray(ev)
+            require(isinstance(Y[0], ShardedVector) and Y[0].mesh is mesh,
+                    f"{tag}: results are not sharded vectors on the mesh")
+            require(status["cumIter"] == st_ref["cumIter"]
+                    and report["iterations"] == rep_ref["iterations"]
+                    and report.get("matvecs") == rep_ref.get("matvecs")
+                    and report.get("matmats") == rep_ref.get("matmats"),
+                    f"{tag}: {status['cumIter']} steps, {report}; the "
+                    f"unsharded run: {st_ref['cumIter']} steps, {rep_ref}")
+            rel = float(np.max(np.abs(ev - ev_ref) / np.abs(ev_ref))) \
+                if ev.shape == ev_ref.shape else np.inf
+            require(rel <= SHARDED_RTOL, f"{tag}: levels differ from the "
+                    f"unsharded run's by {rel:.2e} relative")
+            check_states(tag, "highest", ev, Y, want)
+            report_line(tag, status, report, wall, unconv)
+            if fn is fastLanczosDiagonalization:
+                check_counts(tag, counts, {"bsr_spmm": report["matmats"]})
+            else:
+                extends = status["timers"]["extend_subspace"]["calls"]
+                check_counts(tag, counts, {
+                    "bsr_spmv": report["matvecs"] + extends,
+                    "bsr_spmm": 1 + status["restarts"]})
+            steps = status["cumIter"]
+            per_step = {k: round(v / steps, 1) for k, v in coll.items()
+                        if v}
+            print(f"[n] {tag}: the unsharded run's {steps} steps and "
+                  f"{report['iterations']} MINRES iterations; levels "
+                  f"within {rel:.1e} relative of it; wall {wall:.2f} s "
+                  f"(unsharded {walls[ref_tag]:.2f} s); launches "
+                  f"{ {k: v for k, v in counts.items() if v} }; collectives "
+                  f"{ {k: v for k, v in coll.items() if v} }, per step "
+                  f"{per_step}", flush=True)
+            walls[tag] = wall
+            for k, v in counts.items():
+                totals[k] += v
+
+        # (p): the entry points on the card
+        t0 = time.perf_counter()
+        bsr.reset_launch_counts()
+        fn, args = graft_entry.entry()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        nv = out.new_vectors
+        norms = torch.linalg.vector_norm(nv.double(), dim=1).cpu().numpy()
+        require(nv.is_cuda and bool(torch.isfinite(nv).all())
+                and np.all(np.abs(norms - 1) < 1e-3),
+                f"(p) entry(): new vectors {tuple(nv.shape)} norms {norms}")
+        dry = graft_entry.dryrun_multichip(1)
+        audit = graft_entry.weak_scaling(1)
+        torch.cuda.synchronize()
+        for k, v in bsr.launches.items():
+            totals[k] += v
+        pins = graft_entry._COLLECTIVE_BUDGET
+        for kind, rows in audit.items():
+            row = rows[1]
+            got = {part: {k: v for k, v in row[part].items() if v}
+                   for part in ("per_pass", "one_shot")}
+            require(got == pins[kind], f"(p) weak_scaling(1) {kind}: {got}, "
+                    f"the CPU tests pin {pins[kind]} at 2 and 4 ranks")
+            print(f"[p] weak_scaling(1) {kind} (n = {row['n']}): per MINRES "
+                  f"pass {got['per_pass']}, once per step {got['one_shot']} "
+                  f"(the CPU tests' pins at 2 and 4 gloo ranks); step wall "
+                  f"{row['wall_ms']:.3f} ms, one all-reduce "
+                  f"{row['collective_ms']:.4f} ms", flush=True)
+        print(f"[p] entry(): step on the CH3CN cut (n = "
+              f"{args[1].shape[1]}), new-vector norms {norms}; "
+              f"dryrun_multichip(1): mesh {dry['mesh']}, FEAST levels "
+              f"{dry['feast_ev']}; {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    for r in rect_rows:
+        print(f"[row] {r['name']} m={r['m']} rows [0, 512) of 2048 (whole "
+              f"x): kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
+              f"not timed", flush=True)
 
     # -- 5. results ---------------------------------------------------------
     src = "eigensolvers_tpu_torch/csrc/"

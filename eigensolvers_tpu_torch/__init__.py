@@ -3,10 +3,11 @@
 Computes a few interior eigenpairs of large Hermitian operators near a
 target energy with inexact shift-and-invert Lanczos, and every eigenpair
 in a window with FEAST, the Chebyshev-filtered window solver and spectrum
-slicing, over dense vectors or compressed tensor-network states (MPS and
-tree tensor networks), written against the
-same ``AbstractVector`` contract, entry points, status keys and output
-files as the JAX package ``eigensolvers_tpu`` beside it.
+slicing, over dense vectors (whole, or row-sharded over processes on
+``torch.distributed``: ``ShardedVector``) or compressed tensor-network
+states (MPS and tree tensor networks), written against the same
+``AbstractVector`` contract, entry points, status keys and output files as
+the JAX package ``eigensolvers_tpu`` beside it.
 
 Design:
   * compute path: PyTorch tensors on an explicit device; the block-sparse
@@ -38,6 +39,7 @@ from .vectors.ttns import (TTNSVector, TTNO, TreeTopology, parseTree,
 from .vectors.mps_sweeps import als_solve, dmrg_eigensolve
 from .vectors.ttns_sweeps import tree_als_solve, tree_dmrg_eigensolve
 from .vectors.numpy_backend import NumpyVector
+from .parallel import ShardedVector, shard_operator
 from .utils.subspace import (
     basisTransformation,
     calculateTarget,
@@ -76,6 +78,8 @@ __all__ = [
     "tree_als_solve",
     "tree_dmrg_eigensolve",
     "NumpyVector",
+    "ShardedVector",
+    "shard_operator",
     "LINDEP_DEFAULT_VALUE",
     "as_operator",
     "inexactLanczosDiagonalization",

@@ -12,9 +12,11 @@ from .ops.operators import (AbstractOperator, DenseOperator,
 from .ops.sparse import BSROperator
 
 
-def operator_from_arrays(arrays: dict, device) -> AbstractOperator:
+def operator_from_arrays(arrays: dict, device, mesh=None) -> AbstractOperator:
     """Build this package's operator on ``device`` from numpy arrays of a
-    JAX operator.
+    JAX operator; with a ``mesh`` (:func:`~eigensolvers_tpu_torch.parallel.
+    make_mesh`), row-sharded over it (:func:`~eigensolvers_tpu_torch.
+    parallel.shard_operator`) for ``ShardedVector`` states.
 
     * ``BSROperator``: ``{"dataT": np.asarray(op.dataT), "idx":
       np.asarray(op.idx), "n": op.n, "precision": op.precision}`` — the
@@ -29,6 +31,14 @@ def operator_from_arrays(arrays: dict, device) -> AbstractOperator:
 
     ``precision`` may be a name or a ``jax.lax.Precision`` value (its name
     is read; no jax import happens here)."""
+    op = _from_arrays(arrays, device)
+    if mesh is None:
+        return op
+    from .parallel import shard_operator
+    return shard_operator(op, mesh)
+
+
+def _from_arrays(arrays, device):
     precision = arrays.get("precision", "highest")
     if "dataT" in arrays:
         return BSROperator.from_transposed(arrays["dataT"], arrays["idx"],

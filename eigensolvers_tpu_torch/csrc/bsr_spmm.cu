@@ -4,8 +4,11 @@
 //   dataT (nrb, nbpr, B, B)  blocks stored per-block TRANSPOSED:
 //                            dataT[r, t, j, i] = H[r*B + i, idx[r, t]*B + j]
 //   idx   (nrb, nbpr) int32  block-column id of each stored block
-//   X     (m, nrb*B)         the m right-hand sides, lane-major (one row per
-//                            vector), each zero-padded to whole blocks
+//   X     (m, ncb*B)         the m right-hand sides, lane-major (one row per
+//                            vector), each zero-padded to whole blocks: ncb
+//                            block columns (ncb = nrb for a square operator;
+//                            a rank's block rows of a row-sharded operator
+//                            read the whole gathered X, ncb > nrb)
 //   Y     (m, nrb*B)         output, lane-major
 // computing  Y[k, r*B + i] = sum_t sum_j dataT[r, t, j, i] * X[k, idx[r, t]*B + j].
 //
@@ -126,7 +129,7 @@ template <typename T, int TR, int TL, int NL, int SB>
 __global__ void __launch_bounds__(IB / TR * NL)
 bsr_spmm_kernel(const T* __restrict__ dataT, const int* __restrict__ idx,
                 const T* __restrict__ X, T* __restrict__ Y, int nbpr, int B,
-                int m, long long npad, int vec, int xvec) {
+                int m, long long ldx, long long ldy, int vec, int xvec) {
     constexpr int SZ = sizeof(T);
     constexpr int V = Slab<T, SB>::V;
     constexpr int KS = Slab<T, SB>::KS;
@@ -205,7 +208,7 @@ bsr_spmm_kernel(const T* __restrict__ dataT, const int* __restrict__ idx,
                 const int jj = e % KS;
                 const int valid = k0 + q < m
                     ? SZ * max(0, min(xvec, B - j0 - jj)) : 0;
-                const T* src = valid ? X + (k0 + q) * npad + xc + jj : X;
+                const T* src = valid ? X + (k0 + q) * ldx + xc + jj : X;
                 T* dst = xdst + e + q / TL * V;
                 if (xvec == V)
                     cp_async_zfill<16>(dst, src, valid);
@@ -277,7 +280,7 @@ bsr_spmm_kernel(const T* __restrict__ dataT, const int* __restrict__ idx,
     for (int l = 0; l < TL; ++l) {
         const int k = k0 + tl * TL + l;
         if (k >= m) break;
-        T* y = Y + k * npad + (long long)r * B;
+        T* y = Y + k * ldy + (long long)r * B;
 #pragma unroll
         for (int g = 0; g < G; ++g) {
             const int i = ib + g * NI * W + ti * W;
@@ -299,8 +302,8 @@ bsr_spmm_kernel(const T* __restrict__ dataT, const int* __restrict__ idx,
 
 template <typename T, int TR, int TL, int NL, int SB>
 int launch_tile(const void* dataT, const void* idx, const void* X, void* Y,
-                int nrb, int nbpr, int B, int m, int vec, int xvec,
-                void* stream) {
+                int nrb, int ncb, int nbpr, int B, int m, int vec,
+                int xvec, void* stream) {
     constexpr int KS = Slab<T, SB>::KS;
     constexpr int LN = NL * TL;
     const auto kernel = bsr_spmm_kernel<T, TR, TL, NL, SB>;
@@ -314,7 +317,7 @@ int launch_tile(const void* dataT, const void* idx, const void* X, void* Y,
     const dim3 grid(nrb, (B + IB - 1) / IB, (m + LN - 1) / LN);
     kernel<<<grid, IB / TR * NL, bytes, (cudaStream_t)stream>>>(
         (const T*)dataT, (const int*)idx, (const T*)X, (T*)Y, nbpr, B, m,
-        (long long)nrb * B, vec, xvec);
+        (long long)ncb * B, (long long)nrb * B, vec, xvec);
     return (int)cudaGetLastError();
 }
 
@@ -333,27 +336,27 @@ int pick_vec(const void* p, int B) {
 // 32-lane tile, which measured faster with 16 KB.
 template <typename T>
 int launch(const void* dataT, const void* idx, const void* X, void* Y,
-           int nrb, int nbpr, int B, int m, void* stream) {
+           int nrb, int ncb, int nbpr, int B, int m, void* stream) {
     const int vec = pick_vec<T>(dataT, B);
     const int xvec = B % (16 / sizeof(T)) == 0 && (uintptr_t)X % 16 == 0
                      ? 16 / sizeof(T) : 1;
     if (m <= 1)
-        return launch_tile<T, 1, 1, 1, 32768>(dataT, idx, X, Y, nrb, nbpr, B,
-                                              m, vec, xvec, stream);
+        return launch_tile<T, 1, 1, 1, 32768>(dataT, idx, X, Y, nrb, ncb,
+                                              nbpr, B, m, vec, xvec, stream);
     if (m <= 2)
-        return launch_tile<T, 2, 1, 2, 32768>(dataT, idx, X, Y, nrb, nbpr, B,
-                                              m, vec, xvec, stream);
+        return launch_tile<T, 2, 1, 2, 32768>(dataT, idx, X, Y, nrb, ncb,
+                                              nbpr, B, m, vec, xvec, stream);
     if (m <= 4)
-        return launch_tile<T, 4, 1, 4, 32768>(dataT, idx, X, Y, nrb, nbpr, B,
-                                              m, vec, xvec, stream);
+        return launch_tile<T, 4, 1, 4, 32768>(dataT, idx, X, Y, nrb, ncb,
+                                              nbpr, B, m, vec, xvec, stream);
     if (m <= 8)
-        return launch_tile<T, 4, 2, 4, 32768>(dataT, idx, X, Y, nrb, nbpr, B,
-                                              m, vec, xvec, stream);
+        return launch_tile<T, 4, 2, 4, 32768>(dataT, idx, X, Y, nrb, ncb,
+                                              nbpr, B, m, vec, xvec, stream);
     if (m <= 16)
-        return launch_tile<T, 4, 4, 4, 32768>(dataT, idx, X, Y, nrb, nbpr, B,
-                                              m, vec, xvec, stream);
-    return launch_tile<T, 4, 8, 4, 16384>(dataT, idx, X, Y, nrb, nbpr, B, m,
-                                          vec, xvec, stream);
+        return launch_tile<T, 4, 4, 4, 32768>(dataT, idx, X, Y, nrb, ncb,
+                                              nbpr, B, m, vec, xvec, stream);
+    return launch_tile<T, 4, 8, 4, 16384>(dataT, idx, X, Y, nrb, ncb, nbpr,
+                                          B, m, vec, xvec, stream);
 }
 
 }  // namespace
@@ -361,19 +364,19 @@ int launch(const void* dataT, const void* idx, const void* X, void* Y,
 // Plain C entry points (loaded with ctypes).  Each launches ONE kernel on the
 // given stream, does not synchronise, allocates nothing, and returns the
 // CUDA error code of the launch (0 = cudaSuccess).  The caller checks
-// shapes, types, devices and contiguity, 1 <= B <= 1024, m >= 1, and that
-// the grid fits (nrb <= 2^31 - 1, ceil(m / 32) <= 65535), and passes a
-// 16-byte aligned Y.
+// shapes, types, devices and contiguity, 1 <= B <= 1024, m >= 1, every
+// block-column id below ncb, and that the grid fits (nrb <= 2^31 - 1,
+// ceil(m / 32) <= 65535), and passes a 16-byte aligned Y.
 extern "C" {
 
 int bsr_spmm_f32(const void* dataT, const void* idx, const void* X, void* Y,
-                 int nrb, int nbpr, int B, int m, void* stream) {
-    return launch<float>(dataT, idx, X, Y, nrb, nbpr, B, m, stream);
+                 int nrb, int ncb, int nbpr, int B, int m, void* stream) {
+    return launch<float>(dataT, idx, X, Y, nrb, ncb, nbpr, B, m, stream);
 }
 
 int bsr_spmm_f64(const void* dataT, const void* idx, const void* X, void* Y,
-                 int nrb, int nbpr, int B, int m, void* stream) {
-    return launch<double>(dataT, idx, X, Y, nrb, nbpr, B, m, stream);
+                 int nrb, int ncb, int nbpr, int B, int m, void* stream) {
+    return launch<double>(dataT, idx, X, Y, nrb, ncb, nbpr, B, m, stream);
 }
 
 const char* bsr_spmm_error_string(int code) {

@@ -6,7 +6,10 @@
 //                            and lo = bf16(a - hi), stored per-block
 //                            TRANSPOSED: hiT[r, t, j, i] ~ H[r*B + i, idx[r, t]*B + j]
 //   idx   (nrb, nbpr) int32  block-column id of each stored block
-//   X     (m, nrb*B) f32     the m right-hand sides, lane-major
+//   X     (m, ncb*B) f32     the m right-hand sides, lane-major: ncb block
+//                            columns (ncb = nrb for a square operator; a
+//                            rank's block rows of a row-sharded one read
+//                            the whole gathered X, ncb > nrb)
 //   Y     (m, nrb*B) f32     output, lane-major
 // computing, with each x element split the same way (xh = bf16(x),
 // xl = bf16(x - xh)),
@@ -131,7 +134,7 @@ bsr_spmm_split_tc(const __nv_bfloat16* __restrict__ hiT,
                   const __nv_bfloat16* __restrict__ loT,
                   const int* __restrict__ idx, const float* __restrict__ X,
                   float* __restrict__ Y, int nbpr, int B, int m,
-                  long long npad, int vec, int xvec) {
+                  long long ldx, long long ldy, int vec, int xvec) {
     constexpr int IW = 16 * W;          // output rows i of the CTA
     constexpr int AS = IW + APAD;       // ring row stride (bf16)
     constexpr int LN = 8 * NT;          // lanes of the CTA
@@ -209,7 +212,7 @@ bsr_spmm_split_tc(const __nv_bfloat16* __restrict__ hiT,
                 const int jj = e % KS;
                 const int valid = k0 + q < m
                     ? 4 * max(0, min(xvec, B - j0 - jj)) : 0;
-                const float* src = valid ? X + (k0 + q) * npad + xc + jj : X;
+                const float* src = valid ? X + (k0 + q) * ldx + xc + jj : X;
                 if (xvec == 4)
                     cp_async_zfill<16>(xdst + q * XS + jj, src, valid);
                 else
@@ -273,14 +276,14 @@ bsr_spmm_split_tc(const __nv_bfloat16* __restrict__ hiT,
         for (int e = 0; e < 4; ++e) {
             const int k = k0 + n * 8 + 2 * q + (e & 1);
             const int i = ib + warp * 16 + g + (e >> 1) * 8;
-            if (k < m && i < B) Y[k * npad + (long long)r * B + i] = acc[n][e];
+            if (k < m && i < B) Y[k * ldy + (long long)r * B + i] = acc[n][e];
         }
 }
 
 template <int W, int NT>
 int launch(const void* hiT, const void* loT, const void* idx, const void* X,
-           void* Y, int nrb, int nbpr, int B, int m, int vec, int xvec,
-           void* stream) {
+           void* Y, int nrb, int ncb, int nbpr, int B, int m, int vec,
+           int xvec, void* stream) {
     constexpr int IW = 16 * W;
     constexpr int LN = 8 * NT;
     const auto kernel = bsr_spmm_split_tc<W, NT>;
@@ -295,23 +298,23 @@ int launch(const void* hiT, const void* loT, const void* idx, const void* X,
     kernel<<<grid, 32 * W, bytes, (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)hiT, (const __nv_bfloat16*)loT,
         (const int*)idx, (const float*)X, (float*)Y, nbpr, B, m,
-        (long long)nrb * B, vec, xvec);
+        (long long)ncb * B, (long long)nrb * B, vec, xvec);
     return (int)cudaGetLastError();
 }
 
 // Lanes per CTA: 8, 16 or 32.
 template <int W>
 int launch_nt(const void* hiT, const void* loT, const void* idx,
-              const void* X, void* Y, int nrb, int nbpr, int B, int m,
-              int vec, int xvec, void* stream) {
+              const void* X, void* Y, int nrb, int ncb, int nbpr, int B,
+              int m, int vec, int xvec, void* stream) {
     if (m <= 8)
-        return launch<W, 1>(hiT, loT, idx, X, Y, nrb, nbpr, B, m, vec, xvec,
-                            stream);
+        return launch<W, 1>(hiT, loT, idx, X, Y, nrb, ncb, nbpr, B, m, vec,
+                            xvec, stream);
     if (m <= 16)
-        return launch<W, 2>(hiT, loT, idx, X, Y, nrb, nbpr, B, m, vec, xvec,
-                            stream);
-    return launch<W, 4>(hiT, loT, idx, X, Y, nrb, nbpr, B, m, vec, xvec,
-                        stream);
+        return launch<W, 2>(hiT, loT, idx, X, Y, nrb, ncb, nbpr, B, m, vec,
+                            xvec, stream);
+    return launch<W, 4>(hiT, loT, idx, X, Y, nrb, ncb, nbpr, B, m, vec,
+                        xvec, stream);
 }
 
 // The widest copy (elements) that B and both base addresses allow: a slab
@@ -334,27 +337,28 @@ int pick_xvec(const void* X, int B) {
 // Plain C entry points (loaded with ctypes).  The launch is on the given
 // stream, does not synchronise, allocates nothing, and returns the CUDA
 // error code of the launch (0 = cudaSuccess).  The caller checks shapes,
-// types, devices and contiguity, 1 <= B <= 1024, m >= 1, and that the grid
-// fits (nrb <= 2^31 - 1, ceil(m / 32) <= 65535).
+// types, devices and contiguity, 1 <= B <= 1024, m >= 1, every block-column
+// id below ncb, and that the grid fits (nrb <= 2^31 - 1, ceil(m / 32) <=
+// 65535).
 extern "C" {
 
 int bsr_spmm_split_f32(const void* hiT, const void* loT, const void* idx,
-                       const void* X, void* Y, int nrb, int nbpr, int B,
-                       int m, void* stream) {
+                       const void* X, void* Y, int nrb, int ncb, int nbpr,
+                       int B, int m, void* stream) {
     const int vec = pick_vec(hiT, loT, B);
     const int xvec = pick_xvec(X, B);
     const int bp = (B + 15) / 16 * 16;     // B rounded up to the MMA's 16
     if (bp > 64)
-        return launch_nt<8>(hiT, loT, idx, X, Y, nrb, nbpr, B, m, vec, xvec,
-                            stream);
+        return launch_nt<8>(hiT, loT, idx, X, Y, nrb, ncb, nbpr, B, m, vec,
+                            xvec, stream);
     if (bp > 32)
-        return launch_nt<4>(hiT, loT, idx, X, Y, nrb, nbpr, B, m, vec, xvec,
-                            stream);
+        return launch_nt<4>(hiT, loT, idx, X, Y, nrb, ncb, nbpr, B, m, vec,
+                            xvec, stream);
     if (bp > 16)
-        return launch_nt<2>(hiT, loT, idx, X, Y, nrb, nbpr, B, m, vec, xvec,
-                            stream);
-    return launch_nt<1>(hiT, loT, idx, X, Y, nrb, nbpr, B, m, vec, xvec,
-                        stream);
+        return launch_nt<2>(hiT, loT, idx, X, Y, nrb, ncb, nbpr, B, m, vec,
+                            xvec, stream);
+    return launch_nt<1>(hiT, loT, idx, X, Y, nrb, ncb, nbpr, B, m, vec,
+                        xvec, stream);
 }
 
 const char* bsr_spmm_split_error_string(int code) {

@@ -82,7 +82,7 @@ def _load(name: str, signatures: dict, src=None) -> ctypes.CDLL:
 
 
 _ONE = [_P, _P, _P, _P, _I, _I, _I, _P]        # blocks, idx, x, y, nrb..B
-_MANY = [_P, _P, _P, _P, _I, _I, _I, _I, _P]    # ..., m, stream
+_MANY = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]  # nrb, ncb, nbpr, B, m
 
 
 @functools.cache

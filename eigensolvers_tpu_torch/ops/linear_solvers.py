@@ -28,6 +28,17 @@ system), plain right Jacobi for GMRES.
 Stopping criterion: ||r|| <= max(rtol*||b||, atol).  The outer eigensolvers
 depend on *inexactness semantics* (loose inner tolerances), not on bitwise
 solver equality with SciPy.
+
+Sharded states (:mod:`eigensolvers_tpu_torch.parallel`): every solver takes
+an optional ``reduce``, the all-reduce over the mesh's "x" group
+(``reduce(t)`` sums, ``reduce(t, "max")`` takes the maximum,
+``reduce(t, "norm")`` joins the ranks' 2-norms), through which each dot
+product, norm and maximum over the state axis goes; the operator gathers x
+itself.  Every branch is then decided from reduced values, the
+same on every rank.  ``reduce=None`` (one device) leaves the arithmetic as
+it was.  :func:`lanes_over_b` splits a lane stack over the mesh's "b"
+group, and :func:`minres_batch_local` is the lane-local batched MINRES: no
+collective inside its loop, one all-gather over "b" after it.
 """
 
 from __future__ import annotations
@@ -58,6 +69,18 @@ def _vdot_re(a, b):
     return torch.vdot(a, b).real
 
 
+def reduced(t, reduce):
+    """``t`` summed over the ranks under ``reduce`` (see the module
+    docstring), or ``t`` itself without one."""
+    return t if reduce is None else reduce(t)
+
+
+def _norm(r, reduce=None) -> float:
+    """||r|| as a host float, over every rank's rows under ``reduce``."""
+    n = torch.linalg.vector_norm(r)
+    return (n if reduce is None else reduce(n, "norm")).item()
+
+
 def _shifted_matvec(op: AbstractOperator, sigma, gf_sign):
     """A(x) = gf_sign * (sigma*x - H x);  gf_sign=+1 is the Green's function
     (sigma - H), -1 the reverse (H - sigma) (reference: numpyVector.py:151-154)."""
@@ -70,7 +93,8 @@ def _shifted_matvec(op: AbstractOperator, sigma, gf_sign):
 # ----------------------------------------------------------------------------
 # MINRES (Paige & Saunders) — Hermitian, possibly indefinite
 # ----------------------------------------------------------------------------
-def _minres_fixed(matvec, b, x0, rtol, atol, maxiter, psolve=None):
+def _minres_fixed(matvec, b, x0, rtol, atol, maxiter, psolve=None,
+                  reduce=None):
     """MINRES (Paige & Saunders); with ``psolve`` (an SPD M applied as a
     callable) this is standard preconditioned MINRES: the Lanczos vectors are
     M-orthogonal and phibar tracks the M^{-1}-norm of the residual.  Since
@@ -82,7 +106,9 @@ def _minres_fixed(matvec, b, x0, rtol, atol, maxiter, psolve=None):
     The vectors stay on the device; the scalar recurrence (plane rotations,
     stopping test) runs on the host in double precision, as scipy's minres
     does.  Each iteration reads its two new Lanczos scalars (alfa, beta)
-    back in one transfer — the one host read per iteration."""
+    back in one transfer — the one host read per iteration.  Under
+    ``reduce`` an iteration makes two all-reduces: alfa, which the update
+    of y needs, then beta."""
     dtype = torch.promote_types(b.dtype, x0.dtype)
     b = b.to(dtype)
     x0 = x0.to(dtype)
@@ -101,7 +127,7 @@ def _minres_fixed(matvec, b, x0, rtol, atol, maxiter, psolve=None):
         r1 = b - matvec(x)
         nmv += 1
         y = psolve(r1)
-        beta = math.sqrt(max(_vdot_re(r1, y).item(), 0.0))
+        beta = math.sqrt(max(reduced(_vdot_re(r1, y), reduce).item(), 0.0))
         r2 = r1
         w = torch.zeros_like(b)
         w2 = torch.zeros_like(b)
@@ -118,11 +144,12 @@ def _minres_fixed(matvec, b, x0, rtol, atol, maxiter, psolve=None):
             gate = 1.0 if oldb > 0 else 0.0
             coef = gate * -(beta / (oldb if oldb > 0 else 1.0))
             y = torch.add(y, r1, alpha=coef)
-            alfa_t = _vdot_re(v, y)
+            alfa_t = reduced(_vdot_re(v, y), reduce)
             y = torch.addcmul(y, alfa_t.to(y.dtype), r2, value=-1.0 / beta)
             r1, r2 = r2, y
             my = psolve(y)
-            alfa, bb = torch.stack([alfa_t, _vdot_re(y, my)]).tolist()
+            alfa, bb = torch.stack(
+                [alfa_t, reduced(_vdot_re(y, my), reduce)]).tolist()
             oldb = beta
             beta = math.sqrt(max(bb, 0.0))
 
@@ -147,10 +174,10 @@ def _minres_fixed(matvec, b, x0, rtol, atol, maxiter, psolve=None):
         return x, phibar, itn
 
     def norm(r):
-        return torch.linalg.vector_norm(r).item()
+        return _norm(r, reduce)
 
-    tol_abs = max(rtol * math.sqrt(max(_vdot_re(b, psolve(b)).item(), 0.0)),
-                  atol)
+    tol_abs = max(rtol * math.sqrt(max(
+        reduced(_vdot_re(b, psolve(b)), reduce).item(), 0.0)), atol)
     x, phibar, itn = core(x0, tol_abs, 0)
     if not preconditioned:
         return SolveResult(x, phibar, itn, phibar <= tol_abs, nmv)
@@ -185,7 +212,8 @@ def _rowdot_re(a, b):
     return torch.linalg.vecdot(a, b).real
 
 
-def _minres_lanes(apply, b, x, rtol, atol, maxiter, psolve=None):
+def _minres_lanes(apply, b, x, rtol, atol, maxiter, psolve=None,
+                  reduce=None):
     """:func:`_minres_fixed` on every row of b (m, n), each lane on its own
     trajectory: lane k ends with the x, residual, iteration count and
     convergence flag that the single recurrence gives on row k alone
@@ -202,8 +230,10 @@ def _minres_lanes(apply, b, x, rtol, atol, maxiter, psolve=None):
     residual dots) back in ONE transfer; the rotations run on the host in
     double precision, as in :func:`_minres_fixed`, and the coefficients of
     this pass's updates and of the next pass go back in one small copy.
-    Returns (x, resnorm, itn, converged,
-    applies) with per-lane numpy arrays."""
+    Under ``reduce`` a pass makes one all-reduce of the iterating lanes'
+    alfa (the update of their y needs it) and one of every other scalar:
+    two, or one in a pass that no lane iterates.  Returns (x, resnorm, itn,
+    converged, applies) with per-lane numpy arrays."""
     m = b.shape[0]
     dev = b.device
     rdtype = torch.empty((), dtype=b.dtype).real.dtype
@@ -212,8 +242,10 @@ def _minres_lanes(apply, b, x, rtol, atol, maxiter, psolve=None):
     if psolve is None:
         psolve = lambda r: r          # noqa: E731
 
-    t = torch.stack([_rowdot_re(b, psolve(b)),
-                     torch.linalg.vector_norm(b, dim=1)]).cpu().double()
+    t = [_rowdot_re(b, psolve(b)), torch.linalg.vector_norm(b, dim=1)]
+    if reduce is not None:
+        t = [reduce(t[0]), reduce(t[1], "norm")]
+    t = torch.stack(t).cpu().double()
     tol_abs = np.maximum(rtol * np.sqrt(np.maximum(t[0].numpy(), 0.0)), atol)
     tol_true = np.maximum(rtol * t[1].numpy(), atol)
 
@@ -258,14 +290,21 @@ def _minres_lanes(apply, b, x, rtol, atol, maxiter, psolve=None):
         if it.any():
             Yn = W + nxt[1] * r1
             alfa_t = _rowdot_re(v, Yn)
+            if reduce is not None:
+                alfa_t = reduce(alfa_t)
             Yn = Yn - (alfa_t * nxt[0, :, 0])[:, None] * r2
             my = psolve(Yn)
-            reads += [alfa_t, _rowdot_re(Yn, my)]
+            reads += [_rowdot_re(Yn, my)]
         if res.any():
             R = b - W
             myR = psolve(R)
             reads += [_rowdot_re(R, R), _rowdot_re(R, myR)]
-        got = list(torch.stack(reads).cpu().double().numpy())
+        got = torch.stack(reads)
+        if reduce is not None:
+            got = reduce(got)
+        if it.any():
+            got = torch.cat([alfa_t[None], got])
+        got = list(got.cpu().double().numpy())
 
         # -- host: plane rotations (QR of the tridiagonal) of iterating lanes
         phi, oldeps, delta, inv_gamma = (np.zeros(m) for _ in range(4))
@@ -348,7 +387,8 @@ def _minres_lanes(apply, b, x, rtol, atol, maxiter, psolve=None):
 # ----------------------------------------------------------------------------
 # Restarted GMRES — general (non-Hermitian / complex-shifted) systems
 # ----------------------------------------------------------------------------
-def _gmres_fixed(matvec, b, x0, rtol, atol, restart, maxiter, psolve=None):
+def _gmres_fixed(matvec, b, x0, rtol, atol, restart, maxiter, psolve=None,
+                 reduce=None):
     """The JAX package's restarted GMRES: each cycle builds a
     ``restart``-step Arnoldi basis with CGS2 reorthogonalisation (stacked
     products on the device) and keeps the Hessenberg QR by Givens
@@ -357,7 +397,8 @@ def _gmres_fixed(matvec, b, x0, rtol, atol, restart, maxiter, psolve=None):
     After a happy breakdown the rest of the cycle's columns would be zero
     and contribute nothing, so the cycle stops there.  ``iterations``
     counts ``restart`` per cycle, as the JAX package does; ``matvecs``
-    counts the applies made."""
+    counts the applies made.  Under ``reduce`` an Arnoldi step makes three
+    all-reduces (the two CGS passes and the new norm)."""
     if psolve is None:
         psolve = lambda z: z          # noqa: E731
     dtype = torch.promote_types(b.dtype, x0.dtype)
@@ -369,7 +410,7 @@ def _gmres_fixed(matvec, b, x0, rtol, atol, restart, maxiter, psolve=None):
     hdtype = np.complex128 if dtype.is_complex else np.float64
 
     def norm(r):
-        return torch.linalg.vector_norm(r).item()
+        return _norm(r, reduce)
 
     tol_abs = max(rtol * norm(b), atol)
     r = b - matvec(x)
@@ -387,11 +428,13 @@ def _gmres_fixed(matvec, b, x0, rtol, atol, restart, maxiter, psolve=None):
             w = matvec(psolve(V[j]))
             nmv += 1
             Vj = V[:j + 1]
-            h1 = Vj.conj() @ w
+            h1 = reduced(Vj.conj() @ w, reduce)
             w = w - Vj.T @ h1
-            h2 = Vj.conj() @ w                      # second CGS pass
+            h2 = reduced(Vj.conj() @ w, reduce)     # second CGS pass
             w = w - Vj.T @ h2
             hnext_t = torch.linalg.vector_norm(w)
+            if reduce is not None:
+                hnext_t = reduce(hnext_t, "norm")
             h = np.zeros(restart + 1, hdtype)
             h[:j + 2] = torch.cat([h1 + h2, hnext_t[None].to(dtype)]
                                   ).cpu().numpy()
@@ -430,7 +473,14 @@ def _gmres_fixed(matvec, b, x0, rtol, atol, restart, maxiter, psolve=None):
 # ----------------------------------------------------------------------------
 # Jacobi preconditioners for the shifted system A = gf_sign*(sigma*I - H)
 # ----------------------------------------------------------------------------
-def _jacobi_spd(op, sigma, gf_sign):
+def _amax(t, reduce, dim=None):
+    """max of t (over ``dim``, kept), over every rank's rows under
+    ``reduce``."""
+    m = t.amax() if dim is None else t.amax(dim=dim, keepdim=True)
+    return m if reduce is None else reduce(m, "max")
+
+
+def _jacobi_spd(op, sigma, gf_sign, reduce=None):
     """SPD (absolute-value) Jacobi for MINRES: M = 1/max(|diag(A)|, floor).
     ``sigma`` is a scalar, or an (m, 1) column of per-lane shifts that
     gives each row of a lane stack its own M.  Returns None when the
@@ -439,12 +489,12 @@ def _jacobi_spd(op, sigma, gf_sign):
     if d is None:
         return None
     dA = torch.abs(gf_sign * (sigma - d))
-    floor = 1e-8 * torch.clamp_min(dA.amax(dim=-1, keepdim=True), 1.0)
+    floor = 1e-8 * torch.clamp_min(_amax(dA, reduce, -1), 1.0)
     m = 1.0 / torch.maximum(dA, floor)
     return lambda r: (m * r.reshape(m.shape)).reshape(r.shape)
 
 
-def _jacobi_right(op, sigma, gf_sign, dtype):
+def _jacobi_right(op, sigma, gf_sign, dtype, reduce=None):
     """Right Jacobi for GMRES: z = r / diag(A), guarded near diag(A) = 0
     (entries within floor of zero fall back to identity)."""
     d = op.diagonal()
@@ -452,38 +502,41 @@ def _jacobi_right(op, sigma, gf_sign, dtype):
         return None
     dA = (gf_sign * (sigma - d.to(dtype))).to(dtype)
     mag = torch.abs(dA)
-    floor = 1e-8 * torch.clamp_min(torch.max(mag), 1.0)
+    floor = 1e-8 * torch.clamp_min(_amax(mag, reduce), 1.0)
     safe = torch.where(mag > floor, dA, torch.ones_like(dA))
     return lambda r: (r.reshape(-1) / safe).reshape(r.shape)
 
 
-def _resolve_precond(precond, kind, op, sigma, gf_sign, dtype=None):
+def _resolve_precond(precond, kind, op, sigma, gf_sign, dtype=None,
+                     reduce=None):
     if precond in (None, "none"):
         return None
     if precond != "jacobi":
         raise ValueError(
             f"unknown preconditioner {precond!r}; available: jacobi")
     if kind == "minres":
-        return _jacobi_spd(op, sigma, gf_sign)
-    return _jacobi_right(op, sigma, gf_sign, dtype)
+        return _jacobi_spd(op, sigma, gf_sign, reduce)
+    return _jacobi_right(op, sigma, gf_sign, dtype, reduce)
 
 
 # ----------------------------------------------------------------------------
 # public entry points
 # ----------------------------------------------------------------------------
 def minres(op, b, sigma, x0=None, rtol=1e-4, atol=0.0, maxiter=1000,
-           reverseGF=False, precond=None) -> SolveResult:
+           reverseGF=False, precond=None, reduce=None) -> SolveResult:
     """Hermitian shifted solve (sigma*I - H) x = b via MINRES
     (``precond="jacobi"`` for absolute-value Jacobi preconditioning)."""
     gf_sign = -1.0 if reverseGF else 1.0
-    psolve = _resolve_precond(precond, "minres", op, sigma, gf_sign)
+    psolve = _resolve_precond(precond, "minres", op, sigma, gf_sign,
+                              reduce=reduce)
     x0 = torch.zeros_like(b) if x0 is None else x0
     return _minres_fixed(_shifted_matvec(op, sigma, gf_sign), b, x0, rtol,
-                         atol, maxiter, psolve=psolve)
+                         atol, maxiter, psolve=psolve, reduce=reduce)
 
 
 def minres_batch(op, bs, sigmas, x0s=None, rtol=1e-4, atol=0.0,
-                 maxiter=1000, reverseGF=False, precond=None) -> SolveResult:
+                 maxiter=1000, reverseGF=False, precond=None,
+                 reduce=None) -> SolveResult:
     """Batched MINRES over the rows of the lane stack ``bs`` (m, n): lane k
     solves with the real shift ``sigmas[k]`` from the warm start ``x0s[k]``
     (the JAX package's ``vmap`` of ``_minres_fixed``; Jacobi M is built per
@@ -497,18 +550,71 @@ def minres_batch(op, bs, sigmas, x0s=None, rtol=1e-4, atol=0.0,
     sig = torch.as_tensor(np.asarray(sigmas, np.float64).reshape(-1, 1),
                           dtype=torch.empty((), dtype=dtype).real.dtype,
                           device=b.device)
-    psolve = _resolve_precond(precond, "minres", op, sig, gf_sign)
+    psolve = _resolve_precond(precond, "minres", op, sig, gf_sign,
+                              reduce=reduce)
 
     def apply(U):
         Y = sig * U - op.matvec_lanes(U)
         return Y if gf_sign == 1.0 else gf_sign * Y
 
     return SolveResult(*_minres_lanes(apply, b, x, rtol, atol, maxiter,
-                                      psolve=psolve))
+                                      psolve=psolve, reduce=reduce))
+
+
+def _lane_block(nlanes: int, mesh) -> slice:
+    """This rank's lanes of a stack split over the mesh's "b" group."""
+    k = mesh.shape["b"]
+    if nlanes % k:
+        raise ValueError(f"{nlanes} lanes do not split over b={k}; pad them")
+    per = nlanes // k
+    return slice(mesh.rank["b"] * per, (mesh.rank["b"] + 1) * per)
+
+
+def lanes_over_b(mesh, solve, bs, sigmas, x0s=None) -> SolveResult:
+    """``solve(bs, sigmas, x0s) -> SolveResult`` on this rank's share of
+    the lanes of ``bs`` (nlanes, ...) over the mesh's "b" group, then ONE
+    all-gather over "b" of every lane's x with its resnorm, iterations and
+    convergence (lanes never communicate otherwise).  ``nlanes`` divides
+    the "b" extent (the caller pads with zero lanes, which finish at once).
+    ``matvecs`` is the largest count of any rank's stack applies.  With
+    one "b" rank (or no mesh) it is ``solve`` itself."""
+    if mesh is None or mesh.shape["b"] == 1:
+        return solve(bs, sigmas, x0s)
+    sl = _lane_block(bs.shape[0], mesh)
+    res = solve(bs[sl], np.asarray(sigmas)[sl],
+                None if x0s is None else x0s[sl])
+    X = res.x.reshape(res.x.shape[0], -1)
+    rdtype = X.real.dtype
+    tail = torch.as_tensor(np.stack(
+        [np.asarray(res.resnorm, np.float64).reshape(-1),
+         np.asarray(res.iterations, np.float64).reshape(-1),
+         np.asarray(res.converged, np.float64).reshape(-1),
+         np.full(X.shape[0], float(res.matvecs))], axis=1),
+        dtype=rdtype, device=X.device)
+    G = mesh.allgather_b(torch.cat([X, tail.to(X.dtype)], dim=1))
+    tail = torch.real(G[:, -4:]).double().cpu().numpy()
+    x = G[:, :-4].reshape((G.shape[0],) + tuple(res.x.shape[1:]))
+    return SolveResult(x, tail[:, 0], tail[:, 1].astype(np.int64),
+                       tail[:, 2] > 0.5, int(tail[:, 3].max()))
+
+
+def minres_batch_local(mesh, op, bs, sigmas, x0s=None, rtol=1e-4, atol=0.0,
+                       maxiter=1000, reverseGF=False,
+                       precond=None) -> SolveResult:
+    """Lane-local batched MINRES (the JAX package's
+    ``_minres_batch_local_fn``): the lanes split over the mesh's "b" group,
+    the whole state on every rank (``op`` applies locally), and each rank
+    runs :func:`minres_batch` on its own lanes with NO collective inside
+    its loop; one all-gather over "b" after it (:func:`lanes_over_b`)."""
+    return lanes_over_b(
+        mesh, lambda B, s, X0: minres_batch(
+            op, B, s, x0s=X0, rtol=rtol, atol=atol, maxiter=maxiter,
+            reverseGF=reverseGF, precond=precond), bs, sigmas, x0s)
 
 
 def gmres(op, b, sigma, x0=None, rtol=1e-4, atol=0.0, restart=30,
-          maxiter=1000, reverseGF=False, precond=None) -> SolveResult:
+          maxiter=1000, reverseGF=False, precond=None,
+          reduce=None) -> SolveResult:
     """General shifted solve via restarted GMRES (handles complex sigma;
     ``precond="jacobi"`` for right Jacobi preconditioning)."""
     sigma = complex(sigma) if np.iscomplexobj(sigma) else float(sigma)
@@ -518,19 +624,21 @@ def gmres(op, b, sigma, x0=None, rtol=1e-4, atol=0.0, restart=30,
     b = b.to(dtype)
     x0 = torch.zeros_like(b) if x0 is None else x0.to(dtype)
     gf_sign = -1.0 if reverseGF else 1.0
-    psolve = _resolve_precond(precond, "gmres", op, sigma, gf_sign, dtype)
+    psolve = _resolve_precond(precond, "gmres", op, sigma, gf_sign, dtype,
+                              reduce)
     return _gmres_fixed(_shifted_matvec(op, sigma, gf_sign), b, x0, rtol,
-                        atol, restart, maxiter, psolve=psolve)
+                        atol, restart, maxiter, psolve=psolve, reduce=reduce)
 
 
 def gmres_batch(op, bs, sigmas, x0s=None, rtol=1e-4, atol=0.0, restart=30,
-                maxiter=1000, reverseGF=False, precond=None) -> SolveResult:
+                maxiter=1000, reverseGF=False, precond=None,
+                reduce=None) -> SolveResult:
     """GMRES on each row of the lane stack ``bs`` with its own shift, one
     lane after another (the lanes are independent)."""
     sig = np.asarray(sigmas).reshape(-1)
     outs = [gmres(op, bs[k], sig[k], x0=None if x0s is None else x0s[k],
                   rtol=rtol, atol=atol, restart=restart, maxiter=maxiter,
-                  reverseGF=reverseGF, precond=precond)
+                  reverseGF=reverseGF, precond=precond, reduce=reduce)
             for k in range(bs.shape[0])]
     return SolveResult(torch.stack([o.x for o in outs]),
                        np.array([o.resnorm for o in outs]),
@@ -626,21 +734,21 @@ def _jsym_block_apply(op, a, bimag):
     return apply
 
 
-def _jacobi_jsym(op, a, bimag):
+def _jacobi_jsym(op, a, bimag, reduce=None):
     """SPD (absolute-value) Jacobi for the J-symmetrized block system:
     |diag| = sqrt((a - d)^2 + b^2) on both halves, per lane."""
     d = op.diagonal()
     if d is None:
         return None
     m = torch.sqrt((a - d) ** 2 + bimag * bimag)             # (nl, n)
-    floor = 1e-8 * torch.clamp_min(m.amax(dim=1, keepdim=True), 1.0)
+    floor = 1e-8 * torch.clamp_min(_amax(m, reduce, 1), 1.0)
     minv = 1.0 / torch.maximum(m, floor)
     minv2 = torch.cat([minv, minv], dim=1)
     return lambda r: minv2 * r
 
 
 def _splitc_batch(op, bs, sig_re, sig_im, x0s, rtol, atol, gf_sign, maxiter,
-                  precond=None, escalate=3) -> SolveResult:
+                  precond=None, escalate=3, reduce=None) -> SolveResult:
     """The JAX package's ``_splitc_batch_jit`` on the lane MINRES: lane k
     solves the J-symmetrized system of shift sig_re[k] + i sig_im[k] for
     the real RHS bs[k] from the split guess x0s[k] (2n,) or zero (None).
@@ -658,7 +766,7 @@ def _splitc_batch(op, bs, sig_re, sig_im, x0s, rtol, atol, gf_sign, maxiter,
     if precond in (None, "none"):
         psolve = None
     elif precond == "jacobi":
-        psolve = _jacobi_jsym(op, a, bimag)
+        psolve = _jacobi_jsym(op, a, bimag, reduce)
     else:
         raise ValueError(
             f"unknown preconditioner {precond!r}; available: jacobi")
@@ -671,17 +779,22 @@ def _splitc_batch(op, bs, sig_re, sig_im, x0s, rtol, atol, gf_sign, maxiter,
         x = torch.zeros_like(rhs)
     else:
         x = gf_sign * x0s.reshape(nl, 2 * n).to(dtype)
-        r0 = torch.linalg.vector_norm(rhs - apply(x), dim=1)
+        R0 = rhs - apply(x)
         applies += 1
-        keep = r0 <= torch.linalg.vector_norm(rhs, dim=1)
+        nrm = torch.stack([torch.linalg.vector_norm(R0, dim=1),
+                           torch.linalg.vector_norm(rhs, dim=1)])
+        if reduce is not None:
+            nrm = reduce(nrm, "norm")
+        keep = nrm[0] <= nrm[1]
         x = x * keep[:, None].to(dtype)
     x, resn, itn, conv, napp = _minres_lanes(apply, rhs, x, rtol, atol,
-                                             maxiter, psolve=psolve)
+                                             maxiter, psolve=psolve,
+                                             reduce=reduce)
     applies += napp
     if escalate:
         x, resn, itn2, conv, napp = _minres_lanes(
             apply, rhs, x, rtol, atol, int(escalate) * maxiter,
-            psolve=psolve)
+            psolve=psolve, reduce=reduce)
         itn = itn + itn2
         applies += napp
     return SolveResult((gf_sign * x).reshape(nl, 2, n), resn, itn, conv,
@@ -690,7 +803,7 @@ def _splitc_batch(op, bs, sig_re, sig_im, x0s, rtol, atol, gf_sign, maxiter,
 
 def gmres_splitc_batch(op, bs_real, sigmas, x0s=None, rtol=1e-4, atol=0.0,
                        restart=30, maxiter=1000, reverseGF=False,
-                       precond=None, escalate=3) -> SolveResult:
+                       precond=None, escalate=3, reduce=None) -> SolveResult:
     """Batched complex-shifted solves of a REAL symmetric operator in real
     arithmetic (J-symmetrized real-block MINRES; see the comment above):
     the port of the JAX package's ``gmres_splitc_batch``.  ``bs_real``
@@ -717,4 +830,4 @@ def gmres_splitc_batch(op, bs_real, sigmas, x0s=None, rtol=1e-4, atol=0.0,
         op, bs_real, torch.as_tensor(sig.real, dtype=dtype, device=dev),
         torch.as_tensor(sig.imag, dtype=dtype, device=dev), X0, rtol, atol,
         -1.0 if reverseGF else 1.0, maxiter, precond=precond,
-        escalate=int(escalate))
+        escalate=int(escalate), reduce=reduce)

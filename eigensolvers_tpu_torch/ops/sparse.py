@@ -34,6 +34,13 @@ Execution paths, chosen by the device of the tensors alone:
   the references the kernels are tested against.  Complex data takes the
   same real-lane route there.
 
+Every path takes the rectangular form too: a row block of an operator
+(``ncb`` block columns, more than its nrb block rows) applies to the whole
+x of ncb*B elements and gives its own nrb*B rows, computed exactly as the
+same rows of the square launch are (the kernels' grids run over block
+rows).  The row-sharded operators of :mod:`eigensolvers_tpu_torch.parallel`
+apply their ranks' block rows so, to the gathered x.
+
 A CUDA tensor reaches its kernel or raises; nothing falls back to the plain
 version.
 
@@ -78,29 +85,34 @@ class BSROperator(AbstractOperator):
     apply in the data's own precision.  ``use_pallas`` is accepted for the
     JAX package's signature and ignored: the device of the tensors alone
     picks the path (a CUDA tensor always runs its kernel), and there is no
-    Pallas here."""
+    Pallas here.
+
+    ``ncb`` (default: nrb, square) makes a row block: nrb block rows of an
+    operator with ncb block columns, ``n`` rows, applied to x of ncb*B
+    elements (``shape`` is (n, ncb*B)); every block-column id is checked
+    below ncb here, once."""
 
     def __init__(self, data, idx, n: int, use_pallas=None,
-                 precision="highest", device=None):
+                 precision="highest", device=None, ncb=None):
         super().__init__()
         data = as_tensor(data, device)
         if data.ndim != 4 or data.shape[2] != data.shape[3]:
             raise ValueError(f"data must be (nrb, nbpr, B, B), got "
                              f"{tuple(data.shape)}")
-        self._store(data.transpose(2, 3), idx, n, precision)
+        self._store(data.transpose(2, 3), idx, n, precision, ncb)
 
     @classmethod
     def from_transposed(cls, dataT, idx, n: int, precision="highest",
-                        device=None) -> "BSROperator":
+                        device=None, ncb=None) -> "BSROperator":
         """The operator of the per-block transposed blocks ``dataT`` (the
         stored layout, ``BSROperator.dataT`` of either package), kept as
         they are: a contiguous tensor on ``device`` is not copied."""
         self = cls.__new__(cls)
         AbstractOperator.__init__(self)
-        self._store(as_tensor(dataT, device), idx, n, precision)
+        self._store(as_tensor(dataT, device), idx, n, precision, ncb)
         return self
 
-    def _store(self, dataT, idx, n, precision):
+    def _store(self, dataT, idx, n, precision, ncb=None):
         idx = as_tensor(idx, dataT.device, torch.int32)
         if dataT.ndim != 4 or dataT.shape[2] != dataT.shape[3]:
             raise ValueError(f"dataT must be (nrb, nbpr, B, B), got "
@@ -111,8 +123,9 @@ class BSROperator(AbstractOperator):
                              f"{tuple(idx.shape)}")
         if nrb < 1 or nbpr < 1:
             raise ValueError(f"empty operator {tuple(dataT.shape)}")
-        if not 0 <= int(idx.min()) <= int(idx.max()) < nrb:
-            raise ValueError(f"block-column ids must lie in [0, {nrb})")
+        self.ncb = nrb if ncb is None else int(ncb)
+        if not 0 <= int(idx.min()) <= int(idx.max()) < self.ncb:
+            raise ValueError(f"block-column ids must lie in [0, {self.ncb})")
         if not (nrb - 1) * B < int(n) <= nrb * B:
             raise ValueError(f"n={n} does not fit {nrb} block rows of {B}")
         self.register_buffer("dataT", dataT.contiguous())
@@ -145,8 +158,22 @@ class BSROperator(AbstractOperator):
         return int(self.dataT.shape[0] * self.block_size)
 
     @property
+    def square(self) -> bool:
+        return self.ncb == self.dataT.shape[0]
+
+    @property
+    def _cols(self) -> dict:
+        """The wrappers' ``ncb`` argument: none for a square operator."""
+        return {} if self.square else {"ncb": self.ncb}
+
+    @property
+    def n_cols(self) -> int:
+        """Length of the x it applies to: n when square, else ncb*B."""
+        return self.n if self.square else self.ncb * self.block_size
+
+    @property
     def shape(self):
-        return (self.n, self.n)
+        return (self.n, self.n_cols)
 
     @property
     def dtype(self):
@@ -219,30 +246,35 @@ class BSROperator(AbstractOperator):
 
     # -- application --------------------------------------------------------
     def _pad(self, x: torch.Tensor, dtype) -> torch.Tensor:
-        """Zero-pad the last axis from n to n_padded, contiguous."""
+        """Zero-pad the last axis from n_cols to ncb*B, contiguous."""
         xp = x.to(dtype)
-        if self.n_padded != self.n:
-            xp = torch.nn.functional.pad(xp, (0, self.n_padded - self.n))
+        ncols = self.ncb * self.block_size
+        if ncols != self.n_cols:
+            xp = torch.nn.functional.pad(xp, (0, ncols - self.n_cols))
         return xp.contiguous()
 
     def matvec(self, x):
+        """y = A x; a row block maps x (n_cols,) to its n rows, flat."""
         flat = x.reshape(-1)
+        shape = x.shape if self.square else (self.n,)
         if flat.is_complex() or self.dtype.is_complex:
-            return self.matvec_lanes(flat[None])[0].reshape(x.shape)
+            return self.matvec_lanes(flat[None])[0].reshape(shape)
         dtype = torch.promote_types(self.dtype, flat.dtype)
         xp = self._pad(flat, dtype)
         if self.dataT_hi is not None and dtype == torch.float32:
-            yp = bsr_matvec_split(self.dataT_hi, self.dataT_lo, self.idx, xp)
+            yp = bsr_matvec_split(self.dataT_hi, self.dataT_lo, self.idx, xp,
+                                  **self._cols)
         else:
-            yp = bsr_matvec(self.dataT.to(dtype), self.idx, xp)
-        return yp[:self.n].reshape(x.shape)
+            yp = bsr_matvec(self.dataT.to(dtype), self.idx, xp, **self._cols)
+        return yp[:self.n].reshape(shape)
 
     def matvec_lanes(self, X):
         """Apply to each row of the lane stack X (m, n) -> (m, n) in one
         multi-vector product: the block data is read once for all m rows.
         At "high" on f32 data this is the bf16x3 product, like ``matvec``.
-        Complex data goes through real lanes (see the module docstring)."""
-        if X.ndim != 2 or X.shape[1] != self.n:
+        Complex data goes through real lanes (see the module docstring).
+        A row block maps X (m, n_cols) to its (m, n) rows."""
+        if X.ndim != 2 or X.shape[1] != self.n_cols:
             raise ValueError(f"bad lane stack shape {tuple(X.shape)}")
         if not (X.is_complex() or self.dtype.is_complex):
             return self._real_lanes(self.dataT, X)
@@ -263,14 +295,18 @@ class BSROperator(AbstractOperator):
         dtype = torch.promote_types(blocks.dtype, X.dtype)
         Xp = self._pad(X, dtype)                     # (m, npad)
         if self.dataT_hi is not None and dtype == torch.float32:
-            Yp = bsr_matmat_split(self.dataT_hi, self.dataT_lo, self.idx, Xp)
+            Yp = bsr_matmat_split(self.dataT_hi, self.dataT_lo, self.idx, Xp,
+                                  **self._cols)
         else:
-            Yp = bsr_matmat(blocks.to(dtype), self.idx, Xp)
+            Yp = bsr_matmat(blocks.to(dtype), self.idx, Xp, **self._cols)
         return Yp[:, :self.n]
 
     def diagonal(self):
         """diag(H): the (i, i) entries of the diagonal blocks (block rows
-        where idx[r, t] == r)."""
+        where idx[r, t] == r).  A row block has none of its own."""
+        if not self.square:
+            raise ValueError("a row block (ncb != nrb) has no diagonal; take "
+                             "the rows of the whole operator's")
         nrb = self.dataT.shape[0]
         is_diag = self.idx == torch.arange(nrb, dtype=self.idx.dtype,
                                            device=self.idx.device)[:, None]
@@ -281,14 +317,14 @@ class BSROperator(AbstractOperator):
 
     def to_dense(self):
         nrb, nbpr, B, _ = self.dataT.shape
-        out = torch.zeros((self.n_padded, self.n_padded), dtype=self.dtype,
+        out = torch.zeros((self.n_padded, self.ncb * B), dtype=self.dtype,
                           device=self.dataT.device)
         idx = self.idx.cpu().numpy()
         for r in range(nrb):
             for t in range(nbpr):
                 c = int(idx[r, t])
                 out[r * B:(r + 1) * B, c * B:(c + 1) * B] += self.dataT[r, t].T
-        return out[:self.n, :self.n]
+        return out[:self.n, :self.n_cols]
 
 
 # ----------------------------------------------------------------------------
@@ -296,7 +332,8 @@ class BSROperator(AbstractOperator):
 # ----------------------------------------------------------------------------
 def bsr_matvec_plain(dataT, idx, xp):
     """Single RHS: gather the needed x blocks, one batched einsum over the
-    transposed blocks (counterpart of the JAX ``_bsr_matvec_xla``)."""
+    transposed blocks (counterpart of the JAX ``_bsr_matvec_xla``).  xp
+    (ncb*B,) -> (nrb*B,): square or a row block alike."""
     B = dataT.shape[2]
     gathered = xp.reshape(-1, B)[idx.long()]          # (nrb, nbpr, B)
     return torch.einsum("rtji,rtj->ri", dataT, gathered).reshape(-1)
@@ -322,8 +359,8 @@ def bsr_matvec_split_plain(hiT, loT, idx, xp, acc=torch.float32):
 
 
 def bsr_matmat_plain(dataT, idx, Xp):
-    """Multi-RHS: Xp (m, npad) -> (m, npad); the gathered x blocks carry the
-    RHS axis (counterpart of the JAX ``_bsr_matmat_xla``)."""
+    """Multi-RHS: Xp (m, ncb*B) -> (m, nrb*B); the gathered x blocks carry
+    the RHS axis (counterpart of the JAX ``_bsr_matmat_xla``)."""
     B = dataT.shape[2]
     m = Xp.shape[0]
     gathered = Xp.reshape(m, -1, B)[:, idx.long()]    # (m, nrb, nbpr, B)
@@ -353,9 +390,12 @@ def bsr_matmat_split_plain(hiT, loT, idx, Xp, acc=torch.float32):
 # ----------------------------------------------------------------------------
 # Kernel wrappers: CPU -> plain version, CUDA -> hand-written kernel or raise
 # ----------------------------------------------------------------------------
-def _check_launch(blocks, idx, xp, lanes=False):
-    """Validate what the kernels take (x of shape (nrb*B,), or (m, nrb*B)
-    for ``lanes``); returns (nrb, nbpr, B)."""
+def _check_launch(blocks, idx, xp, lanes=False, ncb=None):
+    """Validate what the kernels take: x of shape (ncb*B,), or (m, ncb*B)
+    for ``lanes``, with ncb = nrb (square) unless the caller names the
+    number of block columns (a row block; its block-column ids were
+    checked below ncb when its operator was built, not here).  Returns
+    (nrb, ncb, nbpr, B)."""
     nrb, nbpr, B, B2 = blocks[0].shape
     if B != B2 or not 1 <= B <= _MAX_BLOCK:
         raise ValueError(f"block size {B} (x{B2}) not supported: the kernel "
@@ -365,13 +405,16 @@ def _check_launch(blocks, idx, xp, lanes=False):
     if tuple(idx.shape) != (nrb, nbpr) or idx.dtype != torch.int32:
         raise ValueError(f"idx must be int32 {(nrb, nbpr)}, got "
                          f"{idx.dtype} {tuple(idx.shape)}")
+    ncb = nrb if ncb is None else int(ncb)
+    if ncb < 1:
+        raise ValueError(f"ncb={ncb} block columns")
     if lanes:
-        if xp.ndim != 2 or xp.shape[1] != nrb * B \
+        if xp.ndim != 2 or xp.shape[1] != ncb * B \
                 or not 1 <= xp.shape[0] <= _MAX_LANES:
-            raise ValueError(f"X must be (m, {nrb * B}) with 1 <= m <= "
+            raise ValueError(f"X must be (m, {ncb * B}) with 1 <= m <= "
                              f"{_MAX_LANES}, got {tuple(xp.shape)}")
-    elif tuple(xp.shape) != (nrb * B,):
-        raise ValueError(f"x must be ({nrb * B},), got {tuple(xp.shape)}")
+    elif tuple(xp.shape) != (ncb * B,):
+        raise ValueError(f"x must be ({ncb * B},), got {tuple(xp.shape)}")
     for t in (*blocks, idx, xp):
         if t.device != xp.device:
             raise ValueError(f"tensors on {t.device} and {xp.device}")
@@ -380,24 +423,28 @@ def _check_launch(blocks, idx, xp, lanes=False):
     for t in blocks[1:]:
         if t.shape != blocks[0].shape:
             raise ValueError("hi and lo blocks differ in shape")
-    return nrb, nbpr, B
+    return nrb, ncb, nbpr, B
 
 
-def bsr_matvec(dataT, idx, xp):
-    """B1: ``y = A x`` for the padded x (nrb*B,), f32 or f64 (port of
-    ``eigensolvers_tpu/ops/sparse.py::_bsr_matvec_pallas``)."""
+def bsr_matvec(dataT, idx, xp, ncb=None):
+    """B1: ``y = A x`` for the padded x (ncb*B,) -> (nrb*B,), f32 or f64
+    (port of ``eigensolvers_tpu/ops/sparse.py::_bsr_matvec_pallas``).  The
+    kernel reads x by block-column id and writes y by block row, so a row
+    block launches as the square operator does.  ``ncb``, in every
+    wrapper: the block columns of x, nrb unless a row block's operator
+    (which checked its ids below ncb) names them."""
     if xp.device.type == "cpu":
         return bsr_matvec_plain(dataT, idx, xp)
     if xp.device.type != "cuda":
         raise ValueError(f"no bsr_spmv kernel for device {xp.device}")
-    nrb, nbpr, B = _check_launch((dataT,), idx, xp)
+    nrb, _, nbpr, B = _check_launch((dataT,), idx, xp, ncb=ncb)
     if dataT.dtype not in (torch.float32, torch.float64) \
             or xp.dtype != dataT.dtype:
         raise TypeError(f"bsr_spmv takes f32 or f64 data and x of the same "
                         f"type, got {dataT.dtype} and {xp.dtype}")
     lib = bsr_spmv_library()
     fn = lib.bsr_spmv_f32 if dataT.dtype == torch.float32 else lib.bsr_spmv_f64
-    y = torch.empty_like(xp)
+    y = xp.new_empty(nrb * B)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(dataT.data_ptr(), idx.data_ptr(), xp.data_ptr(),
@@ -407,28 +454,29 @@ def bsr_matvec(dataT, idx, xp):
     return y
 
 
-def _launch_split(name, hiT, loT, idx, Xp, lanes):
-    """Launch the bf16x3 tensor-core kernel on the padded x (nrb*B,) or
-    lane stack (m, nrb*B) and count the launch under ``name``."""
-    nrb, nbpr, B = _check_launch((hiT, loT), idx, Xp, lanes=lanes)
+def _launch_split(name, hiT, loT, idx, Xp, lanes, ncb=None):
+    """Launch the bf16x3 tensor-core kernel on the padded x (ncb*B,) or
+    lane stack (m, ncb*B) and count the launch under ``name``."""
+    nrb, ncb, nbpr, B = _check_launch((hiT, loT), idx, Xp, lanes=lanes,
+                                      ncb=ncb)
     if hiT.dtype != torch.bfloat16 or loT.dtype != torch.bfloat16 \
             or Xp.dtype != torch.float32:
         raise TypeError(f"{name} takes bf16 hi/lo blocks and f32 x, got "
                         f"{hiT.dtype}, {loT.dtype}, {Xp.dtype}")
     lib = bsr_spmm_split_library()
-    Y = torch.empty_like(Xp)
+    Y = Xp.new_empty((Xp.shape[0], nrb * B) if lanes else (nrb * B,))
     with torch.cuda.device(Xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.bsr_spmm_split_f32(hiT.data_ptr(), loT.data_ptr(),
                                       idx.data_ptr(), Xp.data_ptr(),
-                                      Y.data_ptr(), nrb, nbpr, B,
+                                      Y.data_ptr(), nrb, ncb, nbpr, B,
                                       Xp.shape[0] if lanes else 1, stream)
     check(lib, code, name)
     launches[name] += 1
     return Y
 
 
-def bsr_matvec_split(hiT, loT, idx, xp):
+def bsr_matvec_split(hiT, loT, idx, xp, ncb=None):
     """B2: the "high" precision (bf16x3) f32 SpMV from pre-split bf16 blocks
     (port of ``eigensolvers_tpu/ops/sparse.py::_bsr_matvec_pallas_split``):
     the tensor-core kernel of :func:`bsr_matmat_split` with one vector."""
@@ -436,43 +484,46 @@ def bsr_matvec_split(hiT, loT, idx, xp):
         return bsr_matvec_split_plain(hiT, loT, idx, xp)
     if xp.device.type != "cuda":
         raise ValueError(f"no bsr_spmv_split kernel for device {xp.device}")
-    return _launch_split("bsr_spmv_split", hiT, loT, idx, xp, lanes=False)
+    return _launch_split("bsr_spmv_split", hiT, loT, idx, xp, lanes=False,
+                         ncb=ncb)
 
 
-def bsr_matmat(dataT, idx, Xp):
-    """B3: ``Y = (A X^T)^T`` for the padded lane stack Xp (m, nrb*B), f32 or
-    f64, in one launch (replaces the JAX package's XLA
+def bsr_matmat(dataT, idx, Xp, ncb=None):
+    """B3: ``Y = (A X^T)^T`` for the padded lane stack Xp (m, ncb*B) ->
+    (m, nrb*B), f32 or f64, in one launch (replaces the JAX package's XLA
     ``eigensolvers_tpu/ops/sparse.py::_bsr_matmat_xla``)."""
     if Xp.device.type == "cpu":
         return bsr_matmat_plain(dataT, idx, Xp)
     if Xp.device.type != "cuda":
         raise ValueError(f"no bsr_spmm kernel for device {Xp.device}")
-    nrb, nbpr, B = _check_launch((dataT,), idx, Xp, lanes=True)
+    nrb, ncb, nbpr, B = _check_launch((dataT,), idx, Xp, lanes=True,
+                                      ncb=ncb)
     if dataT.dtype not in (torch.float32, torch.float64) \
             or Xp.dtype != dataT.dtype:
         raise TypeError(f"bsr_spmm takes f32 or f64 data and X of the same "
                         f"type, got {dataT.dtype} and {Xp.dtype}")
     lib = bsr_spmm_library()
     fn = lib.bsr_spmm_f32 if dataT.dtype == torch.float32 else lib.bsr_spmm_f64
-    Y = torch.empty_like(Xp)
+    Y = Xp.new_empty((Xp.shape[0], nrb * B))
     with torch.cuda.device(Xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(dataT.data_ptr(), idx.data_ptr(), Xp.data_ptr(),
-                  Y.data_ptr(), nrb, nbpr, B, Xp.shape[0], stream)
+                  Y.data_ptr(), nrb, ncb, nbpr, B, Xp.shape[0], stream)
     check(lib, code, "bsr_spmm")
     launches["bsr_spmm"] += 1
     return Y
 
 
-def bsr_matmat_split(hiT, loT, idx, Xp):
+def bsr_matmat_split(hiT, loT, idx, Xp, ncb=None):
     """B3 at "high": the bf16x3 f32 product of pre-split bf16 blocks with
-    the lane stack Xp (m, nrb*B), in one launch on the tensor cores
+    the lane stack Xp (m, ncb*B), in one launch on the tensor cores
     (``csrc/bsr_spmm_split.cu``)."""
     if Xp.device.type == "cpu":
         return bsr_matmat_split_plain(hiT, loT, idx, Xp)
     if Xp.device.type != "cuda":
         raise ValueError(f"no bsr_spmm_split kernel for device {Xp.device}")
-    return _launch_split("bsr_spmm_split", hiT, loT, idx, Xp, lanes=True)
+    return _launch_split("bsr_spmm_split", hiT, loT, idx, Xp, lanes=True,
+                         ncb=ncb)
 
 
 class BandedOperator(AbstractOperator):

@@ -49,6 +49,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.linear_solvers import reduced
 from ..ops.operators import operator_device
 from ..utils.status import feast_status
 from ..utils.subspace import (
@@ -110,28 +111,46 @@ def _np_dtype(dtype) -> np.dtype:
     return np.dtype(dtype)
 
 
+def _vnorm(v, reduce):
+    """||v|| over every rank's rows under ``reduce`` (see
+    ``ops.linear_solvers``)."""
+    nrm = torch.linalg.vector_norm(v)
+    return nrm if reduce is None else reduce(nrm, "norm")
+
+
+def _norm_rows(X, reduce):
+    """||X_k|| of each row (kept as a column), over every rank's columns
+    under ``reduce``."""
+    nrm = torch.linalg.vector_norm(X, dim=1, keepdim=True)
+    return nrm if reduce is None else reduce(nrm, "norm")
+
+
 def estimate_spectral_bounds(op, n: int, iters: int = 30, seed: int = 0,
-                             dtype=np.float64):
+                             dtype=np.float64, reduce=None, rows=None):
     """Safe [a, b] enclosing the spectrum of the Hermitian ``op`` via a short
     Lanczos run (``iters`` single-vector applies, B1 on a block-sparse
     operator; one host read per step) with the standard residual-based
     safety margin b_est + ||r|| (Zhou & Li, upper-bound lemma).  ``dtype``
     (numpy or torch) is the start vector's, drawn as the JAX package draws
-    it; the vector lives on the operator's device."""
+    it; the vector lives on the operator's device.  A row-sharded ``op``
+    takes this rank's ``rows`` of the start vector and the reduction over
+    the ranks (``reduce``)."""
     rng = np.random.RandomState(seed)
     v = torch.as_tensor(rng.rand(n).astype(_np_dtype(dtype)),
                         device=operator_device(op))
-    v = v / torch.linalg.vector_norm(v)
+    if rows is not None:
+        v = v[rows].contiguous()
+    v = v / _vnorm(v, reduce)
     alphas, betas = [], []
     v_prev = torch.zeros_like(v)
     beta = 0.0
     for _ in range(iters):
         w = op.matvec(v)
-        alpha = torch.vdot(v.to(w.dtype), w).real
+        alpha = reduced(torch.vdot(v.to(w.dtype), w).real, reduce)
         w = w - alpha * v - beta * v_prev
         # alpha and ||w|| in one host read
         alpha_h, new_beta = torch.stack(
-            [alpha, torch.linalg.vector_norm(w)]).tolist()
+            [alpha, _vnorm(w, reduce)]).tolist()
         alphas.append(alpha_h)
         if new_beta < 1e-12:
             beta = 0.0
@@ -151,7 +170,7 @@ def _rr_dtype(W: torch.Tensor) -> torch.dtype:
     return torch.complex128 if W.is_complex() else torch.float64
 
 
-def _filter_stack(op, W, coeffs, a, b):
+def _filter_stack(op, W, coeffs, a, b, reduce=None):
     """Normalized p_d(op) @ W = sum_k c_k T_k((op - c)/h) W for the stacked
     subspace W (m0, n), [a, b] = c -+ h: the three-term Chebyshev
     recurrence, T_1 and every later step one ``op.matvec_lanes`` of the
@@ -170,20 +189,26 @@ def _filter_stack(op, W, coeffs, a, b):
         Tkp1.sub_(Tkm1)
         acc.add_(Tkp1, alpha=ck)
         Tkm1, Tk = Tk, Tkp1
-    nrm = torch.linalg.vector_norm(acc, dim=1, keepdim=True)
+    nrm = _norm_rows(acc, reduce)
     return acc / torch.where(nrm > 0, nrm, 1.0)
 
 
-def _filter_rr(op, W, coeffs, a, b):
+def _gram_pair(Wrr, AW, reduce):
+    """S = W W^H and the symmetrized Hm = W (A W)^H of a stack, both
+    summed over the ranks in one reduction."""
+    S = Wrr.conj() @ Wrr.T
+    Hm = Wrr.conj() @ AW.T
+    SH = reduced(torch.stack([S, Hm]), reduce)
+    return SH[0], 0.5 * (SH[1] + SH[1].conj().T)
+
+
+def _filter_rr(op, W, coeffs, a, b, reduce=None):
     """Filter + subspace assembly: returns (W_filtered on the device, S and
     Hm as host arrays from ONE read).  The assembly is promoted to f64
     (f32 products are exact in f64; only the reduction rounds)."""
-    Wf = _filter_stack(op, W, coeffs, a, b)
+    Wf = _filter_stack(op, W, coeffs, a, b, reduce)
     Wrr = Wf.to(_rr_dtype(Wf))
-    AW = op.matvec_lanes(Wrr)
-    S = _mm(Wrr.conj(), Wrr.T)
-    Hm = _mm(Wrr.conj(), AW.T)
-    Hm = 0.5 * (Hm + Hm.conj().T)
+    S, Hm = _gram_pair(Wrr, op.matvec_lanes(Wrr), reduce)
     SH = torch.stack([S, Hm]).cpu().numpy()           # single host read
     return Wf, SH[0], SH[1]
 
@@ -197,7 +222,7 @@ def _replenishment_pool(shape, dtype, device) -> torch.Tensor:
     return R0 / torch.linalg.vector_norm(R0, dim=1, keepdim=True)
 
 
-def _rr_round(op, Wc, coeffs, a, b, R0):
+def _rr_round(op, Wc, coeffs, a, b, R0, reduce=None):
     """One fused outer iteration: filter -> f64 Rayleigh-Ritz (m0 x m0
     eigh on the device, regularized Löwdin) -> basis rotation.  Returns
     (W at Wc's dtype, ev).
@@ -209,17 +234,14 @@ def _rr_round(op, Wc, coeffs, a, b, R0):
     are hard-DROPPED (zeroed) and their rows replaced with the unit rows of
     ``R0``, so the subspace keeps m0 useful dimensions."""
     f64 = _rr_dtype(Wc)
-    Wrr = _filter_stack(op, Wc, coeffs, a, b).to(f64)
-    AW = op.matvec_lanes(Wrr)
-    S = Wrr.conj() @ Wrr.T
-    Hm = Wrr.conj() @ AW.T
-    Hm = 0.5 * (Hm + Hm.conj().T)
+    Wrr = _filter_stack(op, Wc, coeffs, a, b, reduce).to(f64)
+    S, Hm = _gram_pair(Wrr, op.matvec_lanes(Wrr), reduce)
     s, U = torch.linalg.eigh(S)
     X = U / torch.sqrt(torch.clamp(s, min=1e-12)) * (s > 1e-8)
     Ht = X.conj().T @ Hm @ X
     ev, V = torch.linalg.eigh(0.5 * (Ht + Ht.conj().T))
     Wn = (X @ V).T @ Wrr
-    nrm = torch.linalg.vector_norm(Wn, dim=1, keepdim=True)
+    nrm = _norm_rows(Wn, reduce)
     dead = nrm < 0.5          # unit rows expected; dropped dims ~ 0
     Wn = torch.where(dead, R0.to(f64), Wn / torch.where(nrm > 0, nrm, 1.0))
     # dead rows carry ev=0 from the zeroed Löwdin columns; move them to a
@@ -241,7 +263,7 @@ def _window_residual(ev, ref, eMin, eMax):
     return torch.where(m.any(), num / torch.clamp(den, min=1e-300), if_none)
 
 
-def _enrich(op, Wcur):
+def _enrich(op, Wcur, reduce=None):
     """Terminal polish: one residual-enriched f64 Rayleigh-Ritz round.
 
     The converged f32 filter subspace carries a systematic ~1e-2-angle
@@ -266,17 +288,16 @@ def _enrich(op, Wcur):
     m0 = Wcur.shape[0]
     Wrr = Wcur.to(_rr_dtype(Wcur))
     AW = op.matvec_lanes(Wrr)
-    lam = (Wrr.conj() * AW).sum(dim=1).real / torch.clamp(
-        (Wrr.conj() * Wrr).sum(dim=1).real, min=1e-300)
+    quot = reduced(torch.stack([(Wrr.conj() * AW).sum(dim=1).real,
+                                (Wrr.conj() * Wrr).sum(dim=1).real]), reduce)
+    lam = quot[0] / torch.clamp(quot[1], min=1e-300)
     R = AW - lam[:, None] * Wrr
-    Rn = torch.linalg.vector_norm(R, dim=1, keepdim=True)
+    Rn = _norm_rows(R, reduce)
     healthy = Rn > 1e-8 * torch.clamp(torch.abs(lam), min=1.0)[:, None]
     R = R / torch.where(Rn > 0, Rn, 1.0) * healthy
     B = torch.cat([Wrr, R])                              # (2 m0, n)
     AB = torch.cat([AW, op.matvec_lanes(R)])
-    S2 = B.conj() @ B.T
-    H2 = B.conj() @ AB.T
-    H2 = 0.5 * (H2 + H2.conj().T)
+    S2, H2 = _gram_pair(B, AB, reduce)
     s2, U2 = torch.linalg.eigh(S2)
     X2 = U2 / torch.sqrt(torch.clamp(s2, min=1e-12)) * (s2 > 1e-8)
     Ht2 = X2.conj().T @ H2 @ X2
@@ -288,11 +309,12 @@ def _enrich(op, Wcur):
     order = torch.argsort(ev_out)
     ev_out = ev_out[order]
     Wsel = uSH2[:, keep[order]].T @ B
-    nrm = torch.linalg.vector_norm(Wsel, dim=1, keepdim=True)
+    nrm = _norm_rows(Wsel, reduce)
     return Wsel / torch.where(nrm > 0, nrm, 1.0), ev_out
 
 
-def _fused_window(op, W, coeffs, a, b, eMin, eMax, eConv, maxit):
+def _fused_window(op, W, coeffs, a, b, eMin, eMax, eConv, maxit,
+                  reduce=None, rows=None, n=None):
     """The WHOLE filtered-subspace iteration on the tensors' device: rounds
     of :func:`_rr_round` while the windowed eigenvalue-change residual is
     at least ``eConv`` and fewer than ``maxit`` rounds ran (the JAX
@@ -303,17 +325,22 @@ def _fused_window(op, W, coeffs, a, b, eMin, eMax, eConv, maxit):
     and the certificate makes that visible to the caller.
 
     Returns (W (m0, n) f64, ev, residual, rounds, vector residuals), all
-    but ``residual`` and ``rounds`` on the device."""
-    R0 = _replenishment_pool(W.shape, W.dtype, W.device)
-    Wc, ev_ref = _rr_round(op, W, coeffs, a, b, R0)
+    but ``residual`` and ``rounds`` on the device.  A row-sharded W (this
+    rank's ``rows`` of states of length ``n``) reduces every state
+    contraction over the ranks (``reduce``)."""
+    R0 = _replenishment_pool((W.shape[0], n or W.shape[1]), W.dtype,
+                             W.device)
+    if rows is not None:          # every rank draws the whole pool
+        R0 = R0[:, rows].contiguous()
+    Wc, ev_ref = _rr_round(op, W, coeffs, a, b, R0, reduce)
     res, rounds = math.inf, 1
     while res >= eConv and rounds < maxit:
-        Wc, ev = _rr_round(op, Wc, coeffs, a, b, R0)
+        Wc, ev = _rr_round(op, Wc, coeffs, a, b, R0, reduce)
         res = float(_window_residual(ev, ev_ref, eMin, eMax))
         ev_ref, rounds = ev, rounds + 1
-    Wsel, ev_out = _enrich(op, Wc)
-    vec_res = torch.linalg.vector_norm(
-        op.matvec_lanes(Wsel) - ev_out[:, None] * Wsel, dim=1)
+    Wsel, ev_out = _enrich(op, Wc, reduce)
+    vec_res = _norm_rows(op.matvec_lanes(Wsel) - ev_out[:, None] * Wsel,
+                         reduce)[:, 0]
     return Wsel, ev_out, res, rounds, vec_res
 
 
@@ -348,8 +375,10 @@ def chebyshevFilteredDiagonalization(
     status)`` with the FEAST status keys; ``degree`` replaces FEAST's
     ``nc``/``quad`` (pass ``None`` for the adaptive degree,
     :func:`adaptive_degree`).  ``Y`` must be an array-backed backend
-    (``TorchVector``): the polynomial filter is a dense-subspace method.
-    The work runs on the vectors' device.
+    (``TorchVector``, or ``ShardedVector``: each rank filters its rows,
+    every state contraction reduces over the mesh, and the results are
+    ``ShardedVector`` s on the same mesh): the polynomial filter is a
+    dense-subspace method.  The work runs on the vectors' device.
 
     :param specBounds: (a, b) enclosing the FULL spectrum; estimated with a
         short Lanczos run when None.
@@ -362,14 +391,18 @@ def chebyshevFilteredDiagonalization(
             "for compressed backends")
     options = Y[0].options
     m0 = len(Y)
-    n = Y[0].array.numel()
+    n = Y[0].size                 # the whole state's, padding included
+    # sharded states: this rank's rows, and the reduction over the ranks
+    red = vec_cls._reducer(Y[0]) if hasattr(vec_cls, "_reducer") else None
+    rows = getattr(Y[0], "rows", None)
 
     op = vec_cls._as_operator(A, Y[0]) if hasattr(vec_cls, "_as_operator") \
         else A
 
     if specBounds is None:
         specBounds = estimate_spectral_bounds(
-            op, n, dtype=torch.promote_types(Y[0].dtype, torch.float32))
+            op, n, dtype=torch.promote_types(Y[0].dtype, torch.float32),
+            reduce=red, rows=rows)
     a, b = float(specBounds[0]), float(specBounds[1])
     # keep the window strictly inside the interval even for user bounds
     pad = 1e-3 * (b - a)
@@ -413,7 +446,8 @@ def chebyshevFilteredDiagonalization(
                               degree_try, a, b, eMin, eMax, jackson))
             with timer.phase("fused_window"):
                 Wd, ev_d, residual, iters, vres_d = _fused_window(
-                    op, W, coeffs_try, a, b, eMin, eMax, eConv, maxit)
+                    op, W, coeffs_try, a, b, eMin, eMax, eConv, maxit,
+                    red, rows, n)
                 packed = torch.cat([ev_d, vres_d]).cpu().numpy()  # ONE read
             ev = packed[:m0]
             vec_res = packed[m0:]
@@ -445,14 +479,14 @@ def chebyshevFilteredDiagonalization(
                 f"(residual {residual:.2e})")
         status["timers"] = timer.summary()
         printObj.close()
-        return ev, [vec_cls(w, options) for w in Wd], status
+        return ev, [Y[0]._like(w, options) for w in Wd], status
 
     for it in range(maxit):
         status["outerIter"] = it
         status["quadrature"] = degree      # reporter's per-iteration counter
 
         with timer.phase("filter_rr"):
-            W, Smat, Hmat = _filter_rr(op, W, coeffs, a, b)
+            W, Smat, Hmat = _filter_rr(op, W, coeffs, a, b, red)
 
         printObj.writeFile("iteration", status)
         printObj.writeFile("overlap", Smat)
@@ -498,4 +532,4 @@ def chebyshevFilteredDiagonalization(
     printObj.writeFile("results", ev)
     printObj.fileFooter()
     printObj.close()
-    return ev, [vec_cls(w, options) for w in W], status
+    return ev, [Y[0]._like(w, options) for w in W], status

@@ -18,8 +18,13 @@ convergence contract):
     (iteration, reference) — state-following (maxOvlp) runs at fused-path
     speed.
 
-Returns the same (ev, vectors, status) triple; vectors come back as
-``TorchVector`` s reconstructed from the basis buffer, on its device.
+Returns the same (ev, vectors, status) triple; vectors come back as the
+guesses' kind (``TorchVector`` for a raw array), reconstructed from the
+basis buffer, on its device.  Sharded guesses
+(:class:`~eigensolvers_tpu_torch.parallel.ShardedVector`) keep this rank's
+rows of the basis, and get ``ShardedVector`` results on the same mesh: the
+steps run on the mesh, and every contraction over the state axis reduces
+over its "x" group.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from ..ops.linear_solvers import reduced as _reduced
 from ..ops.operators import as_operator, as_tensor
 from ..utils import checkpointing
 from ..utils.profiling import PhaseTimer
@@ -47,12 +53,14 @@ from .lanczos import analyzeStatus, checkConvergence
 from .step import block_krylov_step
 
 
-def _normalized_rows(G):
+def _normalized_rows(G, reduce=None):
     nrm = torch.linalg.vector_norm(G, dim=1, keepdim=True)
+    if reduce is not None:
+        nrm = reduce(nrm, "norm")
     return G / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
 
 
-def _row_proxies(V, nvec):
+def _row_proxies(V, nvec, reduce=None):
     """Lazy stand-ins for the Krylov basis list, for pick functions
     (which only use ``vdot`` — both reference pick families do,
     reference: util_funcs.py:305-344): the overlap column against each
@@ -76,7 +84,8 @@ def _row_proxies(V, nvec):
                 r = as_tensor(other.array, V.device).reshape(-1)
                 dtype = torch.promote_types(V.dtype, r.dtype)
                 A = Vv.to(dtype)
-                col = (A.conj() if conjugate else A) @ r.to(dtype)
+                col = _reduced((A.conj() if conjugate else A) @ r.to(dtype),
+                               reduce)
                 cache[key] = (other, col.cpu().numpy())
             val = cache[key][1][self.i]
             return complex(val) if np.iscomplexobj(val) else float(val)
@@ -113,16 +122,22 @@ def fastLanczosDiagonalization(
     if isinstance(v0, (list, tuple)):
         options = getattr(v0[0], "options", {}) or {}
         guesses = torch.stack([v.array.reshape(-1) for v in v0])
-        vec_cls = type(v0[0])
-        op = vec_cls._as_operator(Hsolve if Hsolve is not None else H, v0[0])
-        opH = vec_cls._as_operator(H, v0[0])
+        # round-trip the backend: sharded guesses give sharded results on
+        # their mesh, and the steps run on it
+        ref = v0[0]
+        vec_cls = type(ref)
+        op = vec_cls._as_operator(Hsolve if Hsolve is not None else H, ref)
+        opH = vec_cls._as_operator(H, ref)
     else:
         options = {}
         arr = as_tensor(v0)
         guesses = arr[None, :] if arr.ndim == 1 else arr
+        ref = TorchVector(guesses[0], options)
         vec_cls = TorchVector
         op = as_operator(Hsolve if Hsolve is not None else H, arr.device)
         opH = as_operator(H, arr.device)
+    red = vec_cls._reducer(ref)
+    mesh = getattr(ref, "mesh", None)
     nBlock, n = guesses.shape
     opts = options.get("linearSystemArgs", {})
     rtol = rtol if rtol is not None else opts.get("linear_tol", 1e-4)
@@ -149,8 +164,8 @@ def fastLanczosDiagonalization(
 
     # orthonormalize guesses via the contract whole-set QR
     # (reference: abstractVector.py:112 / util_funcs.py:170-194)
-    gset = TorchVector.orthogonalize(
-        [TorchVector(g.to(dtype), options) for g in guesses])
+    gset = vec_cls.orthogonalize(
+        [ref._like(g.to(dtype), options) for g in guesses])
     if len(gset) < nBlock:
         raise RuntimeError(
             f"only {len(gset)} of {nBlock} guess vectors are linearly "
@@ -166,7 +181,8 @@ def fastLanczosDiagonalization(
         """<g_i | H g_j> for the rows of G: one lane-stack apply."""
         if report is not None:
             report["matmats"] = report.get("matmats", 0) + 1
-        return (G.conj() @ opH.matvec_lanes(G).to(dtype).T).cpu().numpy()
+        return _reduced(G.conj() @ opH.matvec_lanes(G).to(dtype).T,
+                        red).cpu().numpy()
 
     Hmat = project(guesses)
     Smat = np.eye(nBlock, dtype=Hmat.dtype)
@@ -180,7 +196,7 @@ def fastLanczosDiagonalization(
     report_pick = get_pick_function_close_to_sigma(sigma) if pick is None \
         else pick
     printObj = LanczosReporter(
-        TorchVector(guesses[0], options), sigma, L, maxit, eConv,
+        ref._like(guesses[0], options), sigma, L, maxit, eConv,
         checkFitTol, status.get("writeOut", writeOut), eShift, convertUnit,
         report_pick, status, outFileName, summaryFileName)
     printObj.fileHeader()
@@ -201,7 +217,7 @@ def fastLanczosDiagonalization(
                 out = block_krylov_step(
                     op, V, nvec, V[nvec - nBlock:nvec], sigma, rtol,
                     maxiter=solve_maxiter, solver=solver, precond=precond,
-                    restart=restart, report=report)
+                    restart=restart, report=report, mesh=mesh)
 
             # solves are on normalized seeds; resnorm is absolute vs ||b||=1
             status["solveResidualMax"] = max(
@@ -245,7 +261,7 @@ def fastLanczosDiagonalization(
                 if pick is None:
                     idx = np.argsort(np.abs(ev - sigma))
                 else:
-                    idx = pick(uSH, _row_proxies(V, uSH.shape[0]), ev)
+                    idx = pick(uSH, _row_proxies(V, uSH.shape[0], red), ev)
                 ev = ev[idx]
                 uSH = uSH[:, idx]
 
@@ -256,7 +272,7 @@ def fastLanczosDiagonalization(
                 # backend-neutral checkpoint of the live basis (opt-in)
                 checkpointing.save_checkpoint(
                     saveDir, status["cumIter"],
-                    [TorchVector(V[i], options) for i in range(nvec)],
+                    [ref._like(V[i], options) for i in range(nvec)],
                     status, eigencoefficients=uSH, eigenvalues=ev)
 
             if not continueIteration:
@@ -266,7 +282,7 @@ def fastLanczosDiagonalization(
         # restart from the first nBlock Ritz vectors
         with timer.phase("restart"):
             coeffs = torch.as_tensor(uSH[:, :nBlock], device=V.device)
-            G = _normalized_rows(coeffs.to(dtype).T @ V[:nvec])
+            G = _normalized_rows(coeffs.to(dtype).T @ V[:nvec], red)
             V.zero_()
             V[:nBlock] = G
             nvec = nBlock
@@ -285,8 +301,8 @@ def fastLanczosDiagonalization(
             R = V[:nvec].clone()
         else:
             coeffs = torch.as_tensor(uSH, device=V.device).to(dtype)
-            R = _normalized_rows(coeffs.T @ V[:nvec])
-    vectors = [vec_cls(R[i], options) for i in range(R.shape[0])]
+            R = _normalized_rows(coeffs.T @ V[:nvec], red)
+    vectors = [ref._like(R[i], options) for i in range(R.shape[0])]
     status["timers"] = timer.summary()
     status["runTime"] = time.time() - status["startTime"]
     printObj.writeFile("results", ev)

@@ -222,7 +222,7 @@ def _filtered_subspace_batched(A, Y, gk, wk, thetas, zs, eRadius,
             rtol_scale=warm_scale if x0s is not None else 1.0,
             report=report)
         return typeClass._accumulate_quadrature_split(sols, mults, m0,
-                                                      Y[0].options)
+                                                      Y[0].options, ref=Y[0])
 
     x0s = None if ritz_ev is None else \
         _ritz_warm_starts(Y, zs, ritz_ev, split=False)

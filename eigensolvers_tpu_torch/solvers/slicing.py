@@ -31,6 +31,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.linear_solvers import reduced
 from ..ops.operators import (AbstractOperator, as_operator, default_device,
                              operator_device)
 from .chebyshev import chebyshev_window_coefficients, estimate_spectral_bounds
@@ -45,7 +46,8 @@ __all__ = [
 
 
 def chebyshev_moments(op, n: int, degree: int = 300, nProbes: int = 8,
-                      bounds=None, seed: int = 0, dtype=np.float32):
+                      bounds=None, seed: int = 0, dtype=np.float32,
+                      reduce=None, rows=None):
     """Hutchinson-estimated Chebyshev moments of the Hermitian ``op``.
 
     Rademacher probes v with entries +-1 give E[v^T T_k(Hs) v] = tr T_k(Hs);
@@ -56,11 +58,15 @@ def chebyshev_moments(op, n: int, degree: int = 300, nProbes: int = 8,
 
     :param bounds: spectral interval (a, b); default: safe Lanczos bounds
         (:func:`chebyshev.estimate_spectral_bounds`)
+    :param reduce, rows: for a row-sharded ``op``, the all-reduce over its
+        ranks and this rank's rows of the probes; the ranks' partial
+        moments are summed once, after the recurrence
     :returns: (mu (degree+1,) float64 host array, (a, b))
     """
     op = as_operator(op)
     if bounds is None:
-        bounds = estimate_spectral_bounds(op, n, seed=seed)
+        bounds = estimate_spectral_bounds(op, n, seed=seed, reduce=reduce,
+                                          rows=rows)
     a, b = float(bounds[0]), float(bounds[1])
     c = (a + b) * 0.5
     h = (b - a) * 0.5
@@ -69,6 +75,8 @@ def chebyshev_moments(op, n: int, degree: int = 300, nProbes: int = 8,
     # +-1/sqrt(n) probes: unit norm, E[v v^T] = I/n -> per-state moments
     V = (rng.randint(0, 2, size=(nProbes, n)) * 2 - 1).astype(dtype)
     V /= math.sqrt(n)
+    if rows is not None:
+        V = V[:, rows]
     V = torch.as_tensor(V, device=operator_device(op))
 
     def scaled_apply(X):
@@ -83,7 +91,7 @@ def chebyshev_moments(op, n: int, degree: int = 300, nProbes: int = 8,
         Tkp1 = scaled_apply(Tk).mul_(2.0).sub_(Tkm1)
         mu[k] = (V * Tkp1).sum(dim=1).mean()
         Tkm1, Tk = Tk, Tkp1
-    return mu.cpu().numpy().astype(np.float64), (a, b)
+    return reduced(mu, reduce).cpu().numpy().astype(np.float64), (a, b)
 
 
 def window_count_from_moments(mu: np.ndarray, a: float, b: float,
@@ -234,8 +242,13 @@ def spectrumSlicingDiagonalization(
     A = as_operator(A, device=device)
 
     n = int(A.shape[0])
-    mu, (a, b) = chebyshev_moments(A, n, degree=degree, nProbes=nProbes,
-                                   bounds=bounds, seed=seed)
+    # a row-sharded A (parallel.shard_operator) runs the moments on this
+    # rank's rows of the probes; a whole A runs them whole on every rank
+    mesh = getattr(A, "mesh", None)
+    mu, (a, b) = chebyshev_moments(
+        A, n, degree=degree, nProbes=nProbes, bounds=bounds, seed=seed,
+        reduce=None if mesh is None else mesh.allreduce_x,
+        rows=getattr(A, "rows", None))
     total_est = window_count_from_moments(mu, a, b, eMin, eMax, n)
 
     if windows is not None:

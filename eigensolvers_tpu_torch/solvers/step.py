@@ -9,6 +9,13 @@ of the basis buffer, their mutual orthonormalization by a masked Cholesky
 of their Gram matrix, and the new overlap/Hamiltonian columns through one
 multi-vector apply and one product.  Only the small (nBlock, nBlock) Gram
 matrix and the (2*nBlock, M) columns cross to the host.
+
+On a mesh (``mesh=``, row-sharded V, seeds and operator, see
+:mod:`eigensolvers_tpu_torch.parallel`) the same step runs on each rank's
+rows: the seeds' solves split over "b" (gathered once after them), and
+each contraction over the state axis (the solves' dots, the norms, the two
+CGS passes, the Gram matrix and the new columns) is one all-reduce over
+"x".
 """
 
 from __future__ import annotations
@@ -18,8 +25,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.linear_solvers import gmres_batch, minres_batch
+from ..ops.linear_solvers import gmres_batch, minres_batch, reduced
 from ..ops.operators import require_true_fp32
+from ..parallel.sharded import solve_lanes
 
 
 class KrylovStepResult(NamedTuple):
@@ -55,7 +63,7 @@ def _masked_cholesky(G, lindep):
 
 def block_krylov_step(op, V, nvec, seeds, sigma, rtol, maxiter=200,
                       lindep=1e-14, solver="minres", precond=None,
-                      restart=30, report=None) -> KrylovStepResult:
+                      restart=30, report=None, mesh=None) -> KrylovStepResult:
     """One block-Lanczos Krylov step, fused.
 
     :param op: operator (Hermitian)
@@ -74,6 +82,9 @@ def block_krylov_step(op, V, nvec, seeds, sigma, rtol, maxiter=200,
     :param report: optional dict accumulating "solves", "iterations" and
         the operator applies ("matmats": lane-stack applies, the new
         columns' one included; "matvecs": GMRES lanes' single applies)
+    :param mesh: None, or the mesh over which ``op`` (a
+        :class:`~eigensolvers_tpu_torch.parallel.RowShardedOperator`), V
+        and the seeds are row-sharded (this rank's rows of each)
     :returns: :class:`KrylovStepResult`; new vectors are zero rows where
         linear dependence was detected.
     """
@@ -82,21 +93,35 @@ def block_krylov_step(op, V, nvec, seeds, sigma, rtol, maxiter=200,
     require_true_fp32(V)
     kwargs = dict(rtol=rtol, atol=0.0, maxiter=maxiter, precond=precond)
     if solver == "minres":
-        res = minres_batch(op, seeds, [sigma] * nBlock, **kwargs)
+        fn = minres_batch
     elif solver == "gmres":
-        res = gmres_batch(op, seeds, [sigma] * nBlock, restart=restart,
-                          **kwargs)
+        fn = gmres_batch
+        kwargs["restart"] = restart
     else:
         raise ValueError(f"unknown solver {solver!r}")
+    if mesh is None:
+        red = None
+        res = fn(op, seeds, [sigma] * nBlock, **kwargs)
+    else:
+        red = mesh.allreduce_x
+        pad = (-nBlock) % mesh.shape["b"]       # zero lanes finish at once
+        B = torch.cat([seeds, seeds.new_zeros((pad, seeds.shape[1]))])
+        res = solve_lanes(mesh, lambda o, Bl, s, X0, r: fn(
+            o, Bl, s, x0s=X0, reduce=r, **kwargs), op, B,
+            [sigma] * (nBlock + pad))
+        res = res._replace(x=res.x[:nBlock], resnorm=res.resnorm[:nBlock],
+                           iterations=res.iterations[:nBlock])
     nrm = torch.linalg.vector_norm(res.x, dim=1, keepdim=True)
+    if red is not None:
+        nrm = red(nrm, "norm")
     X = (res.x / torch.where(nrm > 0, nrm, torch.ones_like(nrm))).to(V.dtype)
 
     # CGS2 against the valid basis rows, all block vectors in one product
     # per pass, then their mutual orthonormalization from the Gram matrix
     Vv = V[:nvec]
     for _ in range(2):
-        X = X - (Vv.T @ (Vv.conj() @ X.T)).T
-    G = (X.conj() @ X.T).cpu().numpy()
+        X = X - (Vv.T @ reduced(Vv.conj() @ X.T, red)).T
+    G = reduced(X.conj() @ X.T, red).cpu().numpy()
     L, oks = _masked_cholesky(G, lindep)
 
     # W = L^{-1} X by forward substitution; lindep rows are zero
@@ -115,7 +140,8 @@ def block_krylov_step(op, V, nvec, seeds, sigma, rtol, maxiter=200,
     Vwork = V.clone()
     Vwork[nvec:nvec + int(oks.sum())] = newV[torch.as_tensor(oks)]
     AV = op.matvec_lanes(newV).to(V.dtype)
-    C = (Vwork.conj() @ torch.cat([newV, AV]).T).cpu().numpy()  # (M, 2nBlock)
+    C = reduced(Vwork.conj() @ torch.cat([newV, AV]).T,
+                red).cpu().numpy()                          # (M, 2nBlock)
 
     if report is not None:
         applies = "matmats" if solver == "minres" else "matvecs"

@@ -28,6 +28,7 @@ JSON.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import tempfile
@@ -46,13 +47,30 @@ TOL = {"f32": 1e-5, "f64": 1e-12}
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 
 
+def load(src):
+    """A version's library.  A source from before the row-block form has
+    no ``ncb`` (block columns) in its entry points and takes the older
+    argument list; ``lib.ncb`` says which."""
+    if "int ncb" in Path(src).read_text():
+        lib = kernels.load_bsr_spmm(src)
+        lib.ncb = True
+        return lib
+    old = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib = kernels._load("bsr_spmm", {"bsr_spmm_f32": old,
+                                     "bsr_spmm_f64": old}, src)
+    lib.ncb = False
+    return lib
+
+
 def apply(lib, dataT, idx, X):
-    """One launch of a version's kernel on the lane stack X (m, npad)."""
+    """One square launch of a version's kernel on the lane stack X (m,
+    npad)."""
     nrb, nbpr, B, _ = dataT.shape
     fn = lib.bsr_spmm_f32 if dataT.dtype == torch.float32 else lib.bsr_spmm_f64
     Y = torch.empty_like(X)
+    dims = (nrb, nrb, nbpr, B) if lib.ncb else (nrb, nbpr, B)
     code = fn(dataT.data_ptr(), idx.data_ptr(), X.data_ptr(), Y.data_ptr(),
-              nrb, nbpr, B, X.shape[0], torch.cuda.current_stream().cuda_stream)
+              *dims, X.shape[0], torch.cuda.current_stream().cuda_stream)
     kernels.check(lib, code, "bsr_spmm")
     return Y
 
@@ -137,8 +155,7 @@ def main(argv=None):
         name, _, src = v.partition("=")
         versions[name] = Path(src)
     with ThreadPoolExecutor(len(versions)) as pool:
-        libs = dict(zip(versions, pool.map(kernels.load_bsr_spmm,
-                                           versions.values())))
+        libs = dict(zip(versions, pool.map(load, versions.values())))
         reports = pool.map(ptxas_report, versions.values()) \
             if args.ptxas else ()
         for name, lines in zip(versions, reports):

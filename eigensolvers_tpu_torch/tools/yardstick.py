@@ -45,11 +45,16 @@ def time_ms(fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
-def bound(block_bytes, idx_bytes, m, npad, itemsize, flops, peak):
+def bound(block_bytes, idx_bytes, m, npad, itemsize, flops, peak,
+          npad_out=None):
     """The least time of one product, in ms, and what sets it: each input
     byte read once and each output byte written once over the HBM rate,
-    against the flops over the peak rate of their type."""
-    t_bytes = (block_bytes + idx_bytes + 2 * m * npad * itemsize) / HBM_BPS
+    against the flops over the peak rate of their type.  ``npad``: the
+    length of each x lane; ``npad_out``: of each y lane (a row block's
+    rows; default ``npad``)."""
+    rows = npad if npad_out is None else npad_out
+    t_bytes = (block_bytes + idx_bytes
+               + m * (npad + rows) * itemsize) / HBM_BPS
     t_ops = flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")

@@ -20,6 +20,14 @@ Rayleigh-Ritz and lindep thresholds cannot afford a TF32 floor.
 The small m×m matrices are returned as host numpy arrays: the projected
 eigenproblems are solved on the host (LAPACK), the right place for
 ~100×100 problems.
+
+Hooks for the sharded backend (:class:`~eigensolvers_tpu_torch.parallel.
+ShardedVector`, which holds a block of the state's rows on each rank):
+every contraction over the state axis goes through :meth:`_reducer` (no
+reduction here, the all-reduce over "x" there), new vectors are made
+laid out like an existing one (:meth:`_like`), the tall QR of a stacked
+basis is :meth:`_tall_qr`, and batched solves run their lane stack through
+:meth:`_batched` after padding it to :meth:`_batch_lane_pad` lanes.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ def _mm(a, b):
     return a @ b
 
 
-def _mgs(x, Q):
+def _mgs(x, Q, reduce=None):
     """Sequential (modified) Gram-Schmidt of x against the rows of Q.
 
     For real data the dots are non-conjugated — a deliberate reproduction of
@@ -53,7 +61,8 @@ def _mgs(x, Q):
     complex inputs use conjugated dots.
 
     Returns (x_orth, innerprod) with innerprod = <x, x> (Hermitian for
-    complex, plain for real — both real-valued for the lindep test)."""
+    complex, plain for real — both real-valued for the lindep test).  Under
+    ``reduce`` (sharded rows) each q costs one all-reduce of its two dots."""
     complex_data = x.is_complex() or Q.is_complex()
     for q in Q:
         if complex_data:
@@ -62,11 +71,15 @@ def _mgs(x, Q):
         else:
             term1 = torch.dot(x, q)
             term2 = torch.dot(q, q)
+        if reduce is not None:
+            term1, term2 = reduce(torch.stack([term1,
+                                               term2.to(term1.dtype)]))
+            term2 = term2.real
         denom = torch.where(torch.abs(term2) > 0, term2, 1.0)
         x = x - (term1 / denom) * q
     if complex_data:
-        return x, torch.vdot(x, x).real
-    return x, torch.dot(x, x)
+        return x, ls.reduced(torch.vdot(x, x).real, reduce)
+    return x, ls.reduced(torch.dot(x, x), reduce)
 
 
 class TorchVector(AbstractVector):
@@ -121,15 +134,50 @@ class TorchVector(AbstractVector):
     def shape(self):
         return tuple(self.array.shape)
 
+    # -- backend hooks (overridden by the sharded backend) ------------------
+    def _like(self, array, options=None) -> "TorchVector":
+        """A vector of this kind holding ``array``, laid out as this one's
+        (for a sharded vector: this rank's rows of the same mesh)."""
+        return type(self)(array, self.options if options is None else options)
+
+    @classmethod
+    def _reducer(cls, ref):
+        """The reduction of a contraction over the state axis of vectors
+        like ``ref``: None here, where each vector is whole."""
+        return None
+
+    @classmethod
+    def _tall_qr(cls, A, ref):
+        """Reduced QR of the tall (n, m) stack of vectors like ``ref``."""
+        return torch.linalg.qr(A, mode="reduced")
+
+    @classmethod
+    def _batched(cls, solve, op, B, sigmas, X0, ref):
+        """Run ``solve(op, B, sigmas, X0, reduce)`` on a lane stack of
+        vectors like ``ref``: here at once, on the whole stack."""
+        return solve(op, B, sigmas, X0, None)
+
+    @classmethod
+    def _batch_lane_pad(cls, nlanes: int, ref) -> int:
+        """Zero lanes to append so the batch divides the mesh's "b" extent
+        (0 here).  A padding lane's solve finishes at once."""
+        return 0
+
+    @classmethod
+    def _place_batch(cls, B, ref, state_axis: int = 1):
+        """This process's lanes of a stacked solve batch: all of them
+        here."""
+        return B
+
     # -- scalar ops ---------------------------------------------------------
     def __mul__(self, other):
-        return type(self)(self.array * other, self.options)
+        return self._like(self.array * other)
 
     def __rmul__(self, other):
-        return type(self)(self.array * other, self.options)
+        return self._like(self.array * other)
 
     def __truediv__(self, other):
-        return type(self)(self.array / other, self.options)
+        return self._like(self.array / other)
 
     def __imul__(self, other):
         self.array = self.array * other
@@ -142,28 +190,34 @@ class TorchVector(AbstractVector):
     def __len__(self) -> int:
         return int(self.array.numel())
 
+    def _norm_t(self) -> torch.Tensor:
+        n = torch.linalg.vector_norm(self.array)
+        red = self._reducer(self)
+        return n if red is None else red(n, "norm")
+
     def normalize(self) -> "TorchVector":
-        self.array = self.array / torch.linalg.vector_norm(self.array)
+        self.array = self.array / self._norm_t()
         return self
 
     def norm(self) -> float:
-        return float(torch.linalg.vector_norm(self.array))
+        return float(self._norm_t())
 
     def real(self) -> "TorchVector":
-        return type(self)(torch.real(self.array), self.options)
+        return self._like(torch.real(self.array))
 
     def conjugate(self) -> "TorchVector":
-        return type(self)(torch.conj_physical(self.array), self.options)
+        return self._like(torch.conj_physical(self.array))
 
     def vdot(self, other, conjugate: bool = True):
         dtype = torch.promote_types(self.dtype, other.dtype)
         a = self.array.reshape(-1).to(dtype)
         b = other.array.reshape(-1).to(dtype)
         val = torch.vdot(a, b) if conjugate else torch.dot(a, b)
+        val = ls.reduced(val, self._reducer(self))
         return complex(val) if val.is_complex() else float(val)
 
     def copy(self) -> "TorchVector":
-        return type(self)(self.array.clone(), self.options)
+        return self._like(self.array.clone())
 
     @classmethod
     def _as_operator(cls, H, ref: "TorchVector"):
@@ -173,7 +227,7 @@ class TorchVector(AbstractVector):
 
     def applyOp(self, operator) -> "TorchVector":
         op = self._as_operator(operator, self)
-        return type(self)(op.matvec(self.array), self.options)
+        return self._like(op.matvec(self.array))
 
     def compress(self) -> "TorchVector":
         return self
@@ -193,10 +247,16 @@ class TorchVector(AbstractVector):
 
     # -- stacked-basis helpers ----------------------------------------------
     @staticmethod
-    def _stack(vectors: List["TorchVector"]) -> torch.Tensor:
+    def _stack(vectors: List["TorchVector"],
+               pad_to: Optional[int] = None) -> torch.Tensor:
+        """The (m, n) stack of the vectors' flat arrays at their common
+        dtype, with zero rows appended up to ``pad_to``."""
         dtype = functools.reduce(torch.promote_types,
                                  [v.dtype for v in vectors])
-        return torch.stack([v.array.reshape(-1).to(dtype) for v in vectors])
+        V = torch.stack([v.array.reshape(-1).to(dtype) for v in vectors])
+        if pad_to is not None and pad_to > V.shape[0]:
+            V = torch.cat([V, V.new_zeros((pad_to - V.shape[0], V.shape[1]))])
+        return V
 
     @staticmethod
     def _coeffs(coeffs, V) -> torch.Tensor:
@@ -212,7 +272,7 @@ class TorchVector(AbstractVector):
         V = cls._stack(vectors)
         c = cls._coeffs(coeffs, V)
         out = _mm(c, V.to(c.dtype))
-        return cls(out.reshape(vectors[0].array.shape), vectors[0].options)
+        return vectors[0]._like(out.reshape(vectors[0].array.shape))
 
     @classmethod
     def linearCombinationBatch(cls, vectors: List["TorchVector"],
@@ -225,7 +285,7 @@ class TorchVector(AbstractVector):
         C = cls._coeffs(coeffs, V)
         out = _mm(C.T, V.to(C.dtype))
         shape = vectors[0].array.shape
-        return [cls(out[j].reshape(shape), vectors[0].options)
+        return [vectors[0]._like(out[j].reshape(shape))
                 for j in range(out.shape[0])]
 
     @classmethod
@@ -241,12 +301,12 @@ class TorchVector(AbstractVector):
         shape = xs[0].array.shape
         for _ in range(len(xs)):  # ≥1 drop per pass → terminates
             V = cls._stack([xs[i] for i in keep])
-            Q, R = torch.linalg.qr(V.T, mode="reduced")
+            Q, R = cls._tall_qr(V.T, xs[0])
             d = torch.abs(torch.diagonal(R)).cpu().numpy()
             ok = d * d > lindep
             if ok.all():
                 Qh = Q.T
-                return [cls(Qh[j].reshape(shape), xs[keep[j]].options)
+                return [xs[keep[j]]._like(Qh[j].reshape(shape))
                         for j in range(len(keep))]
             keep = [keep[j] for j in range(len(keep)) if ok[j]]
             if not keep:
@@ -261,17 +321,19 @@ class TorchVector(AbstractVector):
         # promote, never demote: casting a complex x to a real basis dtype
         # would silently drop its imaginary part
         dtype = torch.promote_types(x.dtype, Q.dtype)
-        arr, innerprod = _mgs(x.array.reshape(-1).to(dtype), Q.to(dtype))
+        arr, innerprod = _mgs(x.array.reshape(-1).to(dtype), Q.to(dtype),
+                              cls._reducer(x))
         innerprod = float(innerprod)
         if innerprod > lindep:
             arr = arr / math.sqrt(innerprod)
-            return cls(arr.reshape(x.array.shape), x.options)
+            return x._like(arr.reshape(x.array.shape))
         return None
 
     @classmethod
     def overlapMatrix(cls, vectors: List["TorchVector"]) -> np.ndarray:
         V = cls._stack(vectors)
-        return _mm(V.conj(), V.T).cpu().numpy()
+        return ls.reduced(_mm(V.conj(), V.T),
+                        cls._reducer(vectors[0])).cpu().numpy()
 
     @classmethod
     def matrixRepresentation(cls, operator,
@@ -279,13 +341,15 @@ class TorchVector(AbstractVector):
         op = cls._as_operator(operator, vectors[0])
         V = cls._stack(vectors)
         AV = op.matmat(V.T)                                  # (n, m)
-        return _mm(V.conj(), AV.to(V.dtype)).cpu().numpy()
+        return ls.reduced(_mm(V.conj(), AV.to(V.dtype)),
+                        cls._reducer(vectors[0])).cpu().numpy()
 
     @classmethod
     def extendOverlapMatrix(cls, vectors: List["TorchVector"],
                             overlap: np.ndarray) -> np.ndarray:
         V = cls._stack(vectors)
-        col = _mm(V.conj(), V[-1]).cpu().numpy()  # col_i = <v_i | v_new>
+        col = ls.reduced(_mm(V.conj(), V[-1]),    # col_i = <v_i | v_new>
+                       cls._reducer(vectors[0])).cpu().numpy()
         overlap = np.append(overlap, col[None, :-1].conj(), axis=0)
         overlap = np.append(overlap, col[:, None], axis=1)
         return overlap
@@ -296,7 +360,8 @@ class TorchVector(AbstractVector):
         op = cls._as_operator(operator, vectors[0])
         V = cls._stack(vectors)
         Hket = op.matvec(V[-1]).to(V.dtype)
-        col = _mm(V.conj(), Hket).cpu().numpy()   # <v_i | A v_new>
+        col = ls.reduced(_mm(V.conj(), Hket),     # <v_i | A v_new>
+                       cls._reducer(vectors[0])).cpu().numpy()
         opMat = np.append(opMat, col[None, :-1].conj(), axis=0)
         opMat = np.append(opMat, col[:, None], axis=1)
         return opMat
@@ -313,10 +378,11 @@ class TorchVector(AbstractVector):
         out = torch.real(torch.tensordot(
             m, S.to(m.dtype).reshape(len(mults), m0, -1), dims=([0], [0])))
         shape = sols[0].array.shape
-        return [cls(out[i].reshape(shape), sols[0].options) for i in range(m0)]
+        return [sols[0]._like(out[i].reshape(shape)) for i in range(m0)]
 
     @classmethod
-    def _accumulate_quadrature_split(cls, sols, mults, m0: int, options=None):
+    def _accumulate_quadrature_split(cls, sols, mults, m0: int, options=None,
+                                     ref=None):
         """FEAST after split-complex solves: ``sols`` are raw (2, n)
         (Re, Im) tensors, and out[i] = sum_k Re(mult_k) Re(x_ki) -
         Im(mult_k) Im(x_ki) in real arithmetic.  The f64 multipliers
@@ -331,7 +397,9 @@ class TorchVector(AbstractVector):
         mim = torch.as_tensor(mults.imag, dtype=torch.float64, device=S.device)
         out = (torch.tensordot(mre, S[:, :, 0], dims=([0], [0]))
                - torch.tensordot(mim, S[:, :, 1], dims=([0], [0])))
-        return [cls(out[i], options) for i in range(m0)]
+        if ref is None:
+            return [cls(out[i], options) for i in range(m0)]
+        return [ref._like(out[i], options) for i in range(m0)]
 
     @classmethod
     def solveBatchSplit(cls, H, bs, sigmas, x0s=None, reverseGF: bool = False,
@@ -369,13 +437,17 @@ class TorchVector(AbstractVector):
             X0 = torch.stack([x.array.reshape(-1) for x in x0s])
         else:
             X0 = as_tensor(x0s, B.device)
-        res = ls.gmres_splitc_batch(
-            op, B, list(sigmas), x0s=X0,
-            rtol=opts["linear_tol"] * rtol_scale,
-            atol=opts["linear_atol"] * rtol_scale,
-            restart=opts["gmresRestart"], maxiter=opts["linearIter"],
-            reverseGF=reverseGF, precond=opts.get("preconditioner"),
-            escalate=int(opts.get("escalateIter", 3)))
+        nl = len(bs)
+        B, sig, X0 = cls._pad_lanes(B, list(sigmas), X0, bs[0])
+        res = cls._batched(
+            lambda o, Bl, s, X0l, red: ls.gmres_splitc_batch(
+                o, Bl, s, x0s=X0l, rtol=opts["linear_tol"] * rtol_scale,
+                atol=opts["linear_atol"] * rtol_scale,
+                restart=opts["gmresRestart"], maxiter=opts["linearIter"],
+                reverseGF=reverseGF, precond=opts.get("preconditioner"),
+                escalate=int(opts.get("escalateIter", 3)), reduce=red),
+            op, B, sig, X0, bs[0])
+        res = _first_lanes(res, nl)
         cls._account(opts, report, "minres", res, len(bs))
         for k, ok in enumerate(res.converged):
             if not ok:
@@ -419,6 +491,20 @@ class TorchVector(AbstractVector):
         return solver, opts
 
     @classmethod
+    def _pad_lanes(cls, B, sigmas, X0, ref):
+        """Zero lanes appended to the stack B (and to the warm starts X0),
+        with copies of the first shift, to :meth:`_batch_lane_pad`."""
+        pad = cls._batch_lane_pad(B.shape[0], ref)
+        if not pad:
+            return B, sigmas, X0
+        sig = np.asarray(sigmas)
+        sig = np.concatenate([sig.ravel(), np.repeat(sig.ravel()[:1], pad)])
+        B = torch.cat([B, B.new_zeros((pad,) + tuple(B.shape[1:]))])
+        if X0 is not None:
+            X0 = torch.cat([X0, X0.new_zeros((pad,) + tuple(X0.shape[1:]))])
+        return B, sig, X0
+
+    @classmethod
     def _split_single(cls, op, b, sigma, x0, opts, reverseGF):
         """One complex-shifted solve of a real symmetric operator via the
         J-symmetrized real-block MINRES (one lane of
@@ -432,7 +518,8 @@ class TorchVector(AbstractVector):
             rtol=opts["linear_tol"], atol=opts["linear_atol"],
             maxiter=opts["linearIter"], reverseGF=reverseGF,
             precond=opts.get("preconditioner"),
-            escalate=int(opts.get("escalateIter", 3)))
+            escalate=int(opts.get("escalateIter", 3)),
+            reduce=cls._reducer(b))
         cls._account(opts, None, "minres", res, 1)
         if not res.converged[0]:
             msg = (f"Iterative solver splitc-minres did not converge: "
@@ -442,7 +529,7 @@ class TorchVector(AbstractVector):
                 raise RuntimeError(msg)
             warnings.warn(msg)
         x = torch.complex(res.x[0, 0], res.x[0, 1])
-        return cls(x.reshape(b.array.shape), b.options)
+        return b._like(x.reshape(b.array.shape))
 
     @classmethod
     def _want_split(cls, op, b, sigma, opts):
@@ -489,19 +576,20 @@ class TorchVector(AbstractVector):
         dtype = cls._solve_dtype(op, sigma, b.dtype)
         barr = b.array.reshape(-1).to(dtype)
         x0arr = None if x0 is None else x0.array.reshape(-1).to(dtype)
+        red = cls._reducer(b)
         if solver == "exact":
             res = ls.solve_exact(op, barr, sigma, reverseGF=reverseGF)
         elif solver == "minres":
             res = ls.minres(op, barr, sigma, x0=x0arr,
                             rtol=opts["linear_tol"], atol=opts["linear_atol"],
                             maxiter=opts["linearIter"], reverseGF=reverseGF,
-                            precond=opts.get("preconditioner"))
+                            precond=opts.get("preconditioner"), reduce=red)
         elif solver == "gmres":
             res = ls.gmres(op, barr, sigma, x0=x0arr,
                            rtol=opts["linear_tol"], atol=opts["linear_atol"],
                            restart=opts["gmresRestart"],
                            maxiter=opts["linearIter"], reverseGF=reverseGF,
-                           precond=opts.get("preconditioner"))
+                           precond=opts.get("preconditioner"), reduce=red)
         else:
             raise ValueError(
                 f"unknown linearSolver {solver!r}; available: minres, gmres "
@@ -516,7 +604,7 @@ class TorchVector(AbstractVector):
             if opts.get("errorOnNonConvergence", True):
                 raise RuntimeError(msg)
             warnings.warn(msg)
-        return cls(res.x.reshape(b.array.shape), b.options)
+        return b._like(res.x.reshape(b.array.shape))
 
     @classmethod
     def solveBatch(cls, H, bs, sigmas, x0s=None, opType: str = "her",
@@ -567,7 +655,12 @@ class TorchVector(AbstractVector):
                           precond=opts.get("preconditioner"))
             if solver == "gmres":
                 kwargs["restart"] = opts["gmresRestart"]
-            res = fn(op, B, sig, x0s=X0, **kwargs)
+            nl = len(bs)
+            B, sig, X0 = cls._pad_lanes(B, sig, X0, bs[0])
+            res = _first_lanes(cls._batched(
+                lambda o, Bl, s, X0l, red: fn(o, Bl, s, x0s=X0l, reduce=red,
+                                             **kwargs),
+                op, B, sig, X0, bs[0]), nl)
         else:
             raise ValueError(
                 f"unknown linearSolver {solver!r}; available: minres, gmres "
@@ -581,5 +674,14 @@ class TorchVector(AbstractVector):
                 if opts.get("errorOnNonConvergence", True):
                     raise RuntimeError(msg)
                 warnings.warn(msg)
-        return [cls(x.reshape(bs[k].array.shape), bs[k].options)
+        return [bs[k]._like(x.reshape(bs[k].array.shape))
                 for k, x in enumerate(res.x)]
+
+
+def _first_lanes(res, nl: int):
+    """A batched solve's result without its padding lanes."""
+    if res.x.shape[0] == nl:
+        return res
+    return res._replace(x=res.x[:nl], resnorm=res.resnorm[:nl],
+                        iterations=res.iterations[:nl],
+                        converged=res.converged[:nl])

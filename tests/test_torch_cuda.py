@@ -404,3 +404,47 @@ def test_ttns_lanczos_on_the_card(dev):
         got[d.type] = (find_nearest(ev, 0.95)[1],
                        W.sandwich(uv[k].tensors, uv[k].tensors))
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-9)
+
+
+# Row blocks on the card: the launch of block rows [r0, r1) with the whole
+# x (ncb = nrb block columns) must give EXACTLY the rows [r0*B, r1*B) of
+# the square launch (each output row is computed the same way), and match
+# the plain rectangular version as the square launch does.
+@pytest.mark.parametrize("m", [1, 2, 16, 33])
+@pytest.mark.parametrize("nrb,nbpr,B", [(8, 3, 32), (6, 2, 128), (5, 3, 100)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_row_block_launches_equal_the_square_rows(dev, nrb, nbpr, B, m,
+                                                  dtype, tol):
+    dataT, idx, _ = _case(nrb, nbpr, B, dtype, dev)
+    X = _lanes(nrb, B, m, dtype, dev, 5)
+    Y = bsr.bsr_matmat(dataT, idx, X)
+    y = bsr.bsr_matvec(dataT, idx, X[0].contiguous())
+    for r0, r1 in ((0, 2), (2, nrb - 1), (nrb - 1, nrb)):
+        d, i = dataT[r0:r1].contiguous(), idx[r0:r1].contiguous()
+        Yr = bsr.bsr_matmat(d, i, X, ncb=nrb)
+        yr = bsr.bsr_matvec(d, i, X[0].contiguous(), ncb=nrb)
+        torch.cuda.synchronize()
+        rows = slice(r0 * B, r1 * B)
+        assert torch.equal(Yr, Y[:, rows]) and torch.equal(yr, y[rows])
+        assert _relerr(Yr, bsr.bsr_matmat_plain(d, i, X)) <= tol
+
+
+@pytest.mark.parametrize("m", [1, 9, 33])
+@pytest.mark.parametrize("nrb,nbpr,B", [(8, 3, 32), (6, 2, 128)])
+def test_split_row_block_launches_equal_the_square_rows(dev, nrb, nbpr, B,
+                                                        m):
+    dataT, idx, _ = _case(nrb, nbpr, B, torch.float32, dev)
+    hi = dataT.to(torch.bfloat16)
+    lo = (dataT - hi.float()).to(torch.bfloat16)
+    X = _lanes(nrb, B, m, torch.float32, dev, 6)
+    Y = bsr.bsr_matmat_split(hi, lo, idx, X)
+    for r0, r1 in ((0, 3), (3, nrb)):
+        h, l_, i = (t[r0:r1].contiguous() for t in (hi, lo, idx))
+        Yr = bsr.bsr_matmat_split(h, l_, i, X, ncb=nrb)
+        y1 = bsr.bsr_matvec_split(h, l_, i, X[0].contiguous(), ncb=nrb)
+        torch.cuda.synchronize()
+        assert torch.equal(Yr, Y[:, r0 * B:r1 * B])
+        exact = bsr.bsr_matmat_split_plain(h, l_, i, X, acc=torch.float64)
+        assert _relerr(Yr, exact) <= _split_tol(nbpr, B)
+        assert _relerr(y1, exact[0]) <= _split_tol(nbpr, B)

@@ -55,7 +55,13 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing():
             "eigensolvers_tpu_torch.vectors.ttns_sweeps",
             "eigensolvers_tpu_torch.vectors.numpy_backend",
             "eigensolvers_tpu_torch.io",
-            "eigensolvers_tpu_torch.io.fastwriter"} <= set(got["modules"])
+            "eigensolvers_tpu_torch.io.fastwriter",
+            "eigensolvers_tpu_torch.parallel",
+            "eigensolvers_tpu_torch.parallel.mesh",
+            "eigensolvers_tpu_torch.parallel.sharded",
+            "eigensolvers_tpu_torch.parallel.spmd",
+            "eigensolvers_tpu_torch.parallel.launch",
+            "eigensolvers_tpu_torch.graft_entry"} <= set(got["modules"])
     assert got["built"] == 0 and not got["triton"]
 
 
@@ -131,3 +137,22 @@ def test_trace_takes_the_jax_arguments():
     from eigensolvers_tpu_torch.utils.profiling import trace
     with trace(None, host_tracer_level=1) as prof:
         assert prof is None
+
+
+def test_chip_smoke_and_the_distributed_layer_import_no_jax():
+    """chip_smoke.py and the distributed layer's sources name neither jax
+    nor the JAX package, and importing the layer starts no process group
+    (a mesh is built on demand, not at import)."""
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax\b|jaxlib\b|eigensolvers_tpu\b(?!_torch))",
+        re.M)
+    root = PKG.parent
+    for path in [root / "chip_smoke.py", *(PKG / "parallel").glob("*.py"),
+                 PKG / "graft_entry.py"]:
+        assert not pattern.search(path.read_text()), path
+    probe = ("import torch.distributed as d, eigensolvers_tpu_torch.parallel,"
+             " eigensolvers_tpu_torch.graft_entry; print(d.is_initialized())")
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                          text=True, cwd=root, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "False"

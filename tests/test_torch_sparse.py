@@ -478,3 +478,82 @@ def test_complex_blocks_apply_as_two_real_block_sets(xkind, monkeypatch):
     np.testing.assert_allclose(as_np(y), np.asarray(jop.matvec(X[0])),
                                rtol=0, atol=1e-12 * np.abs(ref).max())
     np.testing.assert_allclose(as_np(op.diagonal()), np.diagonal(H), atol=0)
+
+
+# ----------------------------------------------------------------------------
+# Row blocks: nrb block rows of an operator with ncb block columns, the
+# rectangular form that a rank's rows of a row-sharded operator take
+# ----------------------------------------------------------------------------
+def _rect_case(nrb, ncb, nbpr, B, m, seed=3):
+    rng = np.random.RandomState(seed)
+    dataT = rng.standard_normal((nrb, nbpr, B, B))
+    idx = np.stack([np.sort(rng.choice(ncb, nbpr, replace=False))
+                    for _ in range(nrb)]).astype(np.int32)
+    X = rng.standard_normal((m, ncb * B))
+    D = np.zeros((nrb * B, ncb * B))
+    for r in range(nrb):
+        for t in range(nbpr):
+            c = idx[r, t]
+            D[r * B:(r + 1) * B, c * B:(c + 1) * B] += dataT[r, t].T
+    return dataT, idx, X, D
+
+
+@pytest.mark.parametrize("nrb,ncb,nbpr,B", [(2, 8, 3, 16), (3, 5, 2, 32),
+                                            (5, 5, 3, 8)])
+def test_rectangular_plain_versions_match_the_dense_product(nrb, ncb, nbpr,
+                                                            B):
+    """x of ncb*B elements -> nrb*B rows: B1, B3 and both split forms'
+    plain versions against the dense rows (f64, 1e-12; the split forms to
+    their bf16x3 error, 1e-5)."""
+    dataT, idx, X, D = _rect_case(nrb, ncb, nbpr, B, 3)
+    dT, it, Xt = (torch.as_tensor(a) for a in (dataT, idx, X))
+    ref = X @ D.T
+    np.testing.assert_allclose(as_np(bsr.bsr_matvec_plain(dT, it, Xt[0])),
+                               ref[0], rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(as_np(bsr.bsr_matmat_plain(dT, it, Xt)), ref,
+                               rtol=1e-12, atol=1e-12)
+    d32 = dT.float()
+    hi = d32.to(torch.bfloat16)
+    lo = (d32 - hi.float()).to(torch.bfloat16)
+    for got in (bsr.bsr_matvec_split_plain(hi, lo, it, Xt[0].float())[None],
+                bsr.bsr_matmat_split_plain(hi, lo, it, Xt.float())):
+        k = got.shape[0]
+        assert np.abs(as_np(got) - ref[:k]).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_row_blocks_of_an_operator_give_its_rows(precision):
+    """The block rows [r0, r1) of a square BSROperator, as a row block
+    (``ncb`` = nrb), give exactly the rows [r0*B, r1*B) of the whole
+    operator's product, single vector and lane stack alike."""
+    nrb, nbpr, B = 8, 3, 16
+    dataT, idx, X, D = _rect_case(nrb, nrb, nbpr, B, 4)
+    dtype = torch.float32 if precision == "high" else torch.float64
+    whole = bsr.BSROperator.from_transposed(torch.as_tensor(dataT).to(dtype),
+                                            idx, nrb * B, precision=precision,
+                                            device=CPU)
+    Xt = torch.as_tensor(X).to(dtype)
+    Y = whole.matvec_lanes(Xt)
+    y = whole.matvec(Xt[0])
+    for r0, r1 in ((0, 2), (2, 5), (5, 8)):
+        blk = bsr.BSROperator.from_transposed(
+            whole.dataT[r0:r1], whole.idx[r0:r1], (r1 - r0) * B,
+            precision=precision, ncb=nrb)
+        assert blk.shape == ((r1 - r0) * B, nrb * B) and not blk.square
+        rows = slice(r0 * B, r1 * B)
+        assert torch.equal(blk.matvec_lanes(Xt), Y[:, rows])
+        assert torch.equal(blk.matvec(Xt[0]), y[rows])
+    np.testing.assert_allclose(as_np(Y).astype(np.float64), X @ D.T,
+                               rtol=1e-5, atol=1e-5 * np.abs(X @ D.T).max())
+
+
+def test_row_blocks_check_their_column_ids_once_when_built():
+    dataT, idx, X, D = _rect_case(2, 6, 2, 8, 1)
+    bsr.BSROperator.from_transposed(dataT, idx, 16, ncb=6, device=CPU)
+    with pytest.raises(ValueError, match=r"\[0, 4\)"):
+        bsr.BSROperator.from_transposed(dataT, idx, 16, ncb=4, device=CPU)
+    blk = bsr.BSROperator.from_transposed(dataT, idx, 16, ncb=6, device=CPU)
+    with pytest.raises(ValueError, match="bad lane stack"):
+        blk.matvec_lanes(torch.as_tensor(X[:, :16]))
+    with pytest.raises(ValueError, match="no diagonal"):
+        blk.diagonal()
