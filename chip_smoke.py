@@ -63,16 +63,18 @@ Phases (any failure raises and the script exits non-zero):
      moments (gated by the exact window counts), then
      ``spectrumSlicingDiagonalization`` with two windows, (f)'s solve
      options and the polish; every level found once, (f)'s gates;
-   - (l) the N = 8 rung of the CH3CN tree ladder
-     (examples/ch3cn_excited_production.py) on the card: the tree operator
-     and its TTNO, tree DMRG for the ground state and the nu8 pair, then
-     block inexact Lanczos with tree-ALS solves at zpve + 360 cm-1, held
-     to the JAX package's records (artifacts/ch3cn_production.jsonl);
-   - (m) the N = 12 rung seeded from (l)'s states by exact embedding, with
-     every iteration checkpointed through the native writer
-     (``csrc/fastio.cpp``, built with g++) and read back; peak device
-     memory, edge ranks, state bonds, and one line of device-against-host
-     times (applyOp, tree_als_solve) on the card and on the CPU;
+   - (l) the N = 8 rung of the CH3CN tree ladder through the ported
+     driver (``eigensolvers_tpu_torch.examples.ch3cn_excited_production``
+     ``.run``) on the card: the tree operator and its TTNO, tree DMRG for
+     the ground state and the nu8 pair, then block inexact Lanczos with
+     tree-ALS solves at zpve + 360 cm-1, held to the JAX package's records
+     (artifacts/ch3cn_production.jsonl);
+   - (m) the N = 12 rung seeded from (l)'s states (``seed_rung=8``) by
+     exact embedding, with every iteration checkpointed through the native
+     writer (``csrc/fastio.cpp``, built with g++) and read back; peak
+     device memory, host reads, and the card's times of one applyOp and
+     one tree_als_solve (``tools/tree_device_host.py`` sets them beside
+     the CPU's);
    - (n0) row-block launches on the slice operator: B1, B2, B3 f32 at m =
      2, 16, 64 and B3 f64 at m = 48 on 4 ranges of 512 block rows with the
      whole x, each bitwise equal to the matching rows of the square launch
@@ -89,14 +91,27 @@ Phases (any failure raises and the script exits non-zero):
    - (p) the port's entry points (``graft_entry``): ``entry()``'s fused
      step, ``dryrun_multichip(1)``, and ``weak_scaling(1)``'s collective
      counts, held to the counts the CPU tests pin at 2 and 4 gloo ranks;
+   - (q) the ported example drivers (``eigensolvers_tpu_torch.examples``)
+     through their ``run``: the dense and tensor-network demos at their own
+     defaults (driver_dense also ``--large``; spectrum slicing at n =
+     100), the CH3CN drivers at cut arguments, each held to its own
+     oracle, with no BSR kernel launched;
+   - (r) the flagship at the production basis: the N = 42 rung of the
+     excited ladder seeded from the committed N = 24 states
+     (``seed_rung=24``), checkpointed through the native writer, converged
+     and held to artifacts/ch3cn_production.jsonl:17 within 0.01 cm-1,
+     with its distance to both sources of ROADMAP C.1, its wall, peak
+     device memory and host reads;
 5. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
    and a final JSON status line.
 """
 
 import collections
 import contextlib
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -108,7 +123,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 try:
     from eigensolvers_tpu_torch import (TorchVector, calculateTarget,
                                         chebyshevFilteredDiagonalization,
@@ -119,8 +135,7 @@ try:
     from eigensolvers_tpu_torch import graft_entry
     from eigensolvers_tpu_torch.models import product
     from eigensolvers_tpu_torch.io import fastwriter
-    from eigensolvers_tpu_torch.models.molecules import (ch3cn_operator,
-                                                         ch3cn_tree_operator)
+    from eigensolvers_tpu_torch.models.molecules import ch3cn_operator
     from eigensolvers_tpu_torch.models.synthetic import known_spectrum_matrix
     from eigensolvers_tpu_torch.ops import kernels, sparse as bsr
     from eigensolvers_tpu_torch.ops.linear_solvers import gmres_splitc_batch
@@ -142,10 +157,11 @@ try:
     from eigensolvers_tpu_torch.utils.units import au2unit, unit2au
     from eigensolvers_tpu_torch.vectors.mps import (host_reads,
                                                     reset_host_reads)
-    from eigensolvers_tpu_torch.vectors.ttns import (TTNO, TTNSVector,
-                                                     ttns_embed_physical)
-    from eigensolvers_tpu_torch.vectors.ttns_sweeps import (
-        tree_als_solve, tree_dmrg_eigensolve)
+    from eigensolvers_tpu_torch.vectors.ttns import TTNSVector
+    from eigensolvers_tpu_torch.vectors.ttns_sweeps import tree_als_solve
+    from eigensolvers_tpu_torch import examples
+    from eigensolvers_tpu_torch.examples import (
+        ch3cn_excited_production as excited_production)
     # the slice's operator (n = 262,144; nbpr = 9), the card's rates, the
     # timing and the bound, shared with tools/bench_spmm.py
     from eigensolvers_tpu_torch.tools.yardstick import (
@@ -221,23 +237,68 @@ CH3CN_LANCZOS = dict(L=8, maxit=3, eConv=1e-9, checkFitTol=1e-5)
 CH3CN_LINEAR = dict(linearSolver="minres", linearIter=4000, linear_tol=1e-4,
                     linear_atol=1e-8, preconditioner="jacobi",
                     errorOnNonConvergence=False)
-# runs (l), (m): the CH3CN tree ladder of examples/ch3cn_excited_production.py
-# (N = 8, then N = 12 seeded by exact embedding), the parameters of its
-# records in artifacts/ch3cn_production.jsonl (lines 13 and 14), the rung
-# zero-point energies its driver reads (lines 3 and 10).  The gates: each
-# block eigenvalue within 0.01 cm-1 of the record, the reported residual
-# (1e-6 at N = 8, 1e-7 at N = 12; records 4.4e-8 and 3.5e-9).  The N = 8
-# DMRG zpve is held to 9837.5207: the JAX package and this one, run on the
-# CPU with these parameters, both give 9837.52066; the record's 9837.5615
-# (line 3) is a maxD 6 Lanczos value, 0.041 cm-1 above.
-TREE_TARGET_CM = 360.0
-TREE_L = dict(N=8, maxD=8, L=4, maxit=2, eConv=1e-4, nBlock=2,
+# runs (l), (m): the CH3CN tree ladder through the ported excited driver
+# (eigensolvers_tpu_torch/examples/ch3cn_excited_production.py): N = 8,
+# then N = 12 seeded from (l)'s states (--seed-rung 8), the parameters of
+# its records in artifacts/ch3cn_production.jsonl (lines 13 and 14), the
+# rung zero-point energies the excited driver reads (lines 3 and 10).
+# The gates: each block eigenvalue within 0.01 cm-1 of the record, the reported
+# residual (1e-6 at N = 8, 1e-7 at N = 12; records 4.4e-8 and 3.5e-9).  The
+# N = 8 DMRG zpve is held to 9837.5207: the JAX package and this one, run
+# on the CPU with these parameters, both give 9837.52066; the record's
+# 9837.5615 (line 3) is a maxD 6 Lanczos value, 0.041 cm-1 above.
+TREE_L = dict(N=8, params=dict(maxD=8, L=4, maxit=2, eConv=1e-4, nBlock=2,
+                               nSweep=2),
               zpve=9837.5615, ev=(10198.576, 10198.5879), res=1e-6,
-              dmrg=dict(nStates=3, maxD=8, nSweep=8, convTol=1e-9, seed=1),
               dmrg_zpve=9837.5207)
-TREE_M = dict(N=12, maxD=10, L=10, maxit=20, eConv=1e-6, nBlock=2,
+TREE_M = dict(N=12, params=dict(maxD=10, L=10, maxit=20, eConv=1e-6,
+                                nBlock=2, nSweep=2),
               zpve=9837.4519, ev=(10198.4882, 10198.4987), res=1e-7)
 TREE_EV_TOL_CM = 0.01
+# run (r): the flagship at the production basis, N = 42 (fused leaves of
+# 1,764), seeded from the committed N = 24 states (--seed-rung 24) as the
+# JAX record was, at that record's parameters (jsonl line 17), sigma =
+# zpve + 360 cm-1 with line 12's zpve; gates: converged, residual 1e-6,
+# both levels within 0.01 cm-1 of line 17.  The two committed sources of
+# ROADMAP C.1, whose distance (r) prints:
+FLAGSHIP = dict(N=42, seed_rung=24, params=TREE_M["params"], zpve=9837.4691,
+                ev=(10198.4884, 10198.4987), res=1e-6)
+FLAGSHIP_SOURCES = {
+    "artifacts/ch3cn_production.jsonl:17": (10198.4884, 10198.4987),
+    "artifacts/summary_ch3cn_excited_N42.out": (10198.4436, 10198.4539)}
+# run (q): the ported example drivers on the card.  Examples 1 and 4-10
+# at their own defaults (and driver_dense --large), but spectrum slicing:
+# its n = 400 (60 levels in 200.25..320.25) took 156 s and 301 s on two
+# H100 machines, which brought the whole script to 1,148 s of its 1,200,
+# so it runs the same matrix family and spacing at n = 100 (15 levels in
+# 50.25..80.25).  11-16 cut to fit the phase in ~150 s: tree FEAST at
+# N = 8 (line 3's zpve) with 4 nodes, 2 outer iterations and 4 sweeps per
+# solve; the chain DMRG at N = 12, maxD 6 (run_clean -full's arguments);
+# the block Lanczos at N = 8, L 4, maxit 2; chain FEAST on 4 modes at
+# bond 8 (its default, 5 modes at bond 16, took 56 s on the card); the
+# chain ladder's N = 14 rung seeded from the committed
+# artifacts/ch3cn_state_N14.npz (--seed-rung 14); the targeted Lanczos at
+# its defaults.  Each example's own oracle is a gate:
+EX_TOL = dict(
+    dense=1e-6,        # driver_dense: the nearest exact level, relative
+    feast=1e-6,        # feast_window: every exact window level, relative
+    cheb=1e-8,         # chebyshev_window (eConv 1e-10)
+    slicing=1e-8,      # spectrum_slicing: max |ev err|, every level found
+    follow=1e-8,       # state_following_ho (eConv 1e-10), relative
+    pyrazine=1e-6,     # pyrazine_vibronic (eConv 1e-8), relative
+    mps=1e-6,          # mps_sop_lanczos: the dense oracle, relative
+    # (ttns_tree_lanczos raises itself beyond 1e-5 of its dense oracle)
+    # the CH3CN drivers, in cm-1: tree FEAST's pair at bond 3 against (l)'s
+    # (the JAX package's N = 12 FEAST record sits 1.05 cm-1 above its
+    # Lanczos pair), chain FEAST against its DMRG levels, the chain zpves
+    # against the committed chain N = 14 record (line 1: 9837.4818), the
+    # block pair against the tree N = 8 record's (line 13)
+    # (the level nearest the 360 cm-1 target)
+    tree_feast_cm=2.0, chain_feast_cm=0.01, dmrg_cm=1.0, targeted_cm=0.2,
+    block_cm=1.0, ladder_cm=0.01)
+TREE_TARGET_CM = 360.0
+CHAIN_N14_CM = 9837.4818                      # jsonl line 1
+SLICING_EX = dict(n=100, interval=(50.25, 80.25))
 # run (n0): the slice operator's 2048 block rows in 4 ranges of 512, each
 # launched with the whole x; the square B1 / B3 times that PERF.md's
 # kernel table records (section 6, NVIDIA H100 80GB HBM3, 700.00 W)
@@ -248,18 +309,6 @@ RECORDED_MS = {("bsr_spmv f32", 1): 0.4680, ("bsr_spmm f32", 2): 0.4328,
 # run (n): the sharded levels against the unsharded run's (the same
 # arithmetic with one rank: all-reduces and all-gathers of one rank copy)
 SHARDED_RTOL = 1e-10
-
-
-def tree_options(maxD, L):
-    """The production script's vector options (ch3cn_excited_production.py
-    :98-107): Krylov bond maxD, fit bond L*maxD, tree-ALS solves."""
-    return {"compressArgs": {"maxD": maxD, "eps": 1e-10},
-            "stateFittingArgs": {"maxD": L * maxD, "eps": 1e-10},
-            "linearSystemArgs": {"linearSolver": "minres", "method": "als",
-                                 "nSweep": 2, "convTol": 1e-4,
-                                 "siteTol": 1e-6, "linearIter": 120,
-                                 "linear_tol": 1e-3, "maxD": maxD,
-                                 "eps": 1e-10}}
 
 
 NO_LIBRARY = ("none: no single PyTorch call computes the bf16x3 product "
@@ -468,174 +517,307 @@ def wall_ms(fn, reps, dev, warmup=True):
     return float(np.median(times))
 
 
-def tree_rung(tag, op, topo, guess_tensors, rung, **lanczos_kw):
-    """Block inexact Lanczos on one rung of the CH3CN tree ladder, as the
-    production driver runs it: guesses compressed to the Krylov bond
-    before the solver, orthonormalized; sigma = zpve + 360 cm-1.  Checks
-    the block eigenvalues against the record, the reported residual, that
-    the Ritz states stayed on the card and that each one's <v|H|v> (the
-    TTNO zipper) is its eigenvalue, and prints the run.  Returns
-    (the block's Ritz vectors, sigma)."""
-    report = {}
-    opts = tree_options(rung["maxD"], rung["L"])
-    opts["linearSystemArgs"]["report"] = report
-    guesses = [TTNSVector(ts, opts, topo=topo).normalize().compress()
-               for ts in guess_tensors]
-    guesses = TTNSVector.orthogonalize(guesses)
-    require(len(guesses) == rung["nBlock"], f"{tag}: guess set collapsed")
-    guesses = [g.normalize() for g in guesses]
-    sigma = float(unit2au(rung["zpve"] + TREE_TARGET_CM, "cm-1"))
-    reads0 = dict(host_reads)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ev, uv, status = inexactLanczosDiagonalization(
-        op, guesses, sigma, L=rung["L"], maxit=rung["maxit"],
-        eConv=rung["eConv"], checkFitTol=1e-4,
-        eShift=float(unit2au(rung["zpve"], "cm-1")), convertUnit="cm-1",
-        writeOut=False, **lanczos_kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    reads = {k: host_reads[k] - reads0[k] for k in host_reads}
-    ev = np.real(np.asarray(ev))
-    order = np.argsort(np.abs(ev - sigma))[:rung["nBlock"]]
-    picks = order[np.argsort(ev[order])]
-    ev_cm = [float(au2unit(ev[k], "cm-1")) for k in picks]
-    W = TTNSVector._mpo(uv[0], op)
-    rq_cm = [float(au2unit(np.real(W.sandwich(uv[k].tensors, uv[k].tensors)
-                                   / uv[k].vdot(uv[k])), "cm-1"))
-             for k in picks]
-    res = float(status.get("residual", np.nan))
-    print(f"[tree {tag}] N={rung['N']} maxD {rung['maxD']} L {rung['L']} "
-          f"nBlock {rung['nBlock']}: ev {', '.join(f'{e:.4f}' for e in ev_cm)}"
-          f" cm-1 (record {', '.join(str(e) for e in rung['ev'])}, tol "
-          f"{TREE_EV_TOL_CM}), excitations "
-          f"{', '.join(f'{e - rung['zpve']:.4f}' for e in ev_cm)}; <v|H|v> "
-          f"of the fitted states (zipper) {', '.join(f'{e:.4f}' for e in rq_cm)}"
-          f"; residual {res:.3e} (tol {rung['res']:.0e}); converged "
-          f"{status['isConverged']} after {status['cumIter']} Krylov steps, "
-          f"{report.get('solves', 0)} ALS solves; wall {wall:.2f} s; state "
-          f"bonds {[[int(t.shape[0]) for t in uv[k].tensors[1:]] for k in picks]};"
-          f" host reads {reads}", flush=True)
-    require(all(abs(a - b) <= TREE_EV_TOL_CM for a, b in zip(ev_cm, rung["ev"])),
-            f"{tag}: eigenvalues {ev_cm} cm-1, record {rung['ev']}")
-    require(res <= rung["res"], f"{tag}: residual {res:.3e}")
-    require(all(abs(a - b) <= TREE_EV_TOL_CM for a, b in zip(rq_cm, ev_cm)),
+def check_rung(tag, rung, want, res_tol):
+    """Gates of one rung of the excited ladder, as its driver returns it:
+    the block eigenvalues within TREE_EV_TOL_CM of ``want`` (cm-1), the
+    reported residual within ``res_tol``, the Ritz states on the card and
+    finite, and each one's <v|H|v> (the TTNO zipper) its eigenvalue.
+    Prints the rung; returns the levels in cm-1."""
+    rec, status = rung["record"], rung["status"]
+    ev_cm = rec["ev_cm1"]
+    op, topo = rung["op"], rung["topo"]
+    W = op._ttno_cache[(topo, None)]
+    rq_cm = [float(au2unit(np.real(W.sandwich(v.tensors, v.tensors)
+                                   / v.vdot(v)), "cm-1"))
+             for v in rung["vectors"]]
+    res = rec["residual"]
+    print(f"[tree {tag}] N={rec['N']} maxD {rec['maxD']} L {rec['L']} "
+          f"nBlock {rec['nBlock']}: ev {', '.join(f'{e:.4f}' for e in ev_cm)}"
+          f" cm-1 (want {', '.join(str(e) for e in want)}, tol "
+          f"{TREE_EV_TOL_CM}), excitations {rec['excitation_cm1']} above "
+          f"zpve {rec['zpve_cm1']}; <v|H|v> of the fitted states (zipper) "
+          f"{', '.join(f'{e:.4f}' for e in sorted(rq_cm))}; residual "
+          f"{res:.3e} (tol {res_tol:.0e}); converged {rec['converged']} "
+          f"after {rec['cumIter']} Krylov steps; wall {rung['wall']:.2f} s;"
+          f" state bonds "
+          f"{[[int(t.shape[0]) for t in v.tensors[1:]]
+               for v in rung['vectors']]}",
+          flush=True)
+    require(all(abs(a - b) <= TREE_EV_TOL_CM for a, b in zip(ev_cm, want)),
+            f"{tag}: eigenvalues {ev_cm} cm-1, want {want}")
+    require(res <= res_tol, f"{tag}: residual {res:.3e}")
+    require(all(min(abs(r - e) for e in ev_cm) <= TREE_EV_TOL_CM
+                for r in rq_cm),
             f"{tag}: <v|H|v> {rq_cm} of the returned states, ev {ev_cm}")
     require(all(t.is_cuda and bool(torch.isfinite(t).all())
-                for k in picks for t in uv[k].tensors),
+                for v in rung["vectors"] for t in v.tensors),
             f"{tag}: Ritz states left the card or are not finite")
-    return [uv[k] for k in range(rung["nBlock"])], sigma, wall
+    return ev_cm
 
 
-def tree_ladder(dev):
-    """Runs (l) and (m): the CH3CN tree ladder on the card.  Returns the
-    phase walls."""
+def ladder_rung(tag, dev, out, N, params, **kw):
+    """One rung of the excited ladder through the ported driver
+    (``examples.ch3cn_excited_production.run``), with its ALS solves
+    counted and its host reads and peak device memory read."""
+    report = {}
+    reset_host_reads()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 1e9
+    res = excited_production.run([N], device=dev, out=out, report=report,
+                                 **params, **kw)
+    [rung] = res["rungs"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[tree {tag}] {report.get('solves', 0)} ALS solves; host reads "
+          f"{dict(host_reads)}; peak device memory {peak:.3f} GB, "
+          f"{peak - base:.3f} GB above the {base:.3f} GB allocated before "
+          f"the run", flush=True)
+    return rung, peak
+
+
+def check_checkpoints(tag, d, topo, dev):
+    """Every iteration's checkpoint went through the native writer and the
+    last one reads back as the run's tree states."""
+    tag_last = checkpointing.latest_tag(d)
+    files = sorted(os.listdir(d))
+    vecs, meta = checkpointing.load_checkpoint(d, tag_last, TTNSVector,
+                                               device=dev)
+    print(f"[tree {tag}] checkpoints: {len(files)} files on disk, last tag "
+          f"{tag_last} holds {len(vecs)} tree states, status cumIter "
+          f"{meta['status'].get('cumIter')}", flush=True)
+    require(len(files) > 0 and tag_last is not None
+            and meta["status"].get("cumIter") == tag_last
+            and all(v.topo == topo and all(torch.isfinite(t).all()
+                                           for t in v.tensors) for v in vecs),
+            f"{tag} checkpoints: files {files}")
+    return len(files)
+
+
+def tree_ladder(dev, out):
+    """Runs (l) and (m): the CH3CN tree ladder on the card, through the
+    ported excited driver.  Returns the phase walls."""
     walls = {}
     # (l): N = 8: DMRG for the ground state and the nu8 pair, then the block
     # Lanczos on the pair
-    t0 = time.perf_counter()
-    rung = TREE_L
-    op8, topo, parts8, _ = ch3cn_tree_operator(N=rung["N"], device=dev)
-    ttno8 = TTNO.from_sop_compressed(topo, op8)
-    op8._ttno_cache = {(topo, None): ttno8}       # the solver's own TTNO
-    t_build = time.perf_counter() - t0
-    dims8 = [rung["N"] ** len(p) for p in parts8]
-    reset_host_reads()
-    t0 = time.perf_counter()
-    es, xs = tree_dmrg_eigensolve(topo, ttno8.tensors, dims8,
-                                  maxD=rung["dmrg"]["maxD"],
-                                  nStates=rung["dmrg"]["nStates"],
-                                  nSweep=rung["dmrg"]["nSweep"],
-                                  convTol=rung["dmrg"]["convTol"],
-                                  seed=rung["dmrg"]["seed"])
-    torch.cuda.synchronize()
-    t_dmrg = time.perf_counter() - t0
-    es_cm = [float(au2unit(e, "cm-1")) for e in es]
-    print(f"[tree (l)] CH3CN tree N={rung['N']}: dims {dims8}, TTNO edge "
-          f"ranks {ttno8.ranks} (operator + TTNO {t_build:.2f} s); DMRG "
-          f"maxD {rung['dmrg']['maxD']}: zpve {es_cm[0]:.4f} cm-1 (tol "
-          f"{TREE_EV_TOL_CM} of {rung['dmrg_zpve']}), excited guesses "
+    rung, _ = ladder_rung("(l)", dev, os.path.join(out, "l"), TREE_L["N"],
+                          TREE_L["params"])
+    es_cm = rung["dmrg_cm1"]
+    print(f"[tree (l)] CH3CN tree N={TREE_L['N']}: TTNO edge ranks "
+          f"{rung['op']._ttno_cache[(rung['topo'], None)].ranks}; DMRG: "
+          f"zpve {es_cm[0]:.4f} cm-1 (tol {TREE_EV_TOL_CM} of "
+          f"{TREE_L['dmrg_zpve']}), excited guesses "
           f"{', '.join(f'{e - es_cm[0]:.4f}' for e in es_cm[1:])} cm-1 above "
-          f"it; {t_dmrg:.2f} s, host reads {dict(host_reads)}", flush=True)
-    require(abs(es_cm[0] - rung["dmrg_zpve"]) <= TREE_EV_TOL_CM,
+          f"it; {rung['dmrg_s']:.2f} s", flush=True)
+    require(abs(es_cm[0] - TREE_L["dmrg_zpve"]) <= TREE_EV_TOL_CM,
             f"(l) DMRG zpve {es_cm[0]:.4f}")
-    require(all(t.is_cuda for x in xs for t in x), "(l) DMRG left the card")
-    seeds, _, wall = tree_rung("(l)", op8, topo, xs[1:1 + rung["nBlock"]],
-                               rung)
-    walls["(l) DMRG"], walls["(l) Lanczos"] = t_dmrg, wall
-    del op8, ttno8, xs
+    require(rung["zpve_cm1"] == TREE_L["zpve"], f"(l) zpve {rung['zpve_cm1']}")
+    check_rung("(l)", rung, TREE_L["ev"], TREE_L["res"])
+    walls["(l) DMRG"], walls["(l) Lanczos"] = rung["dmrg_s"], rung["wall"]
+    del rung
 
-    # (m): N = 12 from (l)'s states, embedded exactly; checkpoints of every
-    # iteration through the native writer
-    rung = TREE_M
-    op12, topo, parts12, _ = ch3cn_tree_operator(N=rung["N"], device=dev)
-    ttno = TTNO.from_sop_compressed(topo, op12)
-    op12._ttno_cache = {(topo, None): ttno}
-    guess = [ttns_embed_physical(v.tensors, parts12, TREE_L["N"], rung["N"])
-             for v in seeds]
+    # (m): N = 12 from (l)'s states (--seed-rung 8 from (l)'s output),
+    # embedded exactly; checkpoints of every iteration through the native
+    # writer
     writer = checkpointing.default_async_writer()
     require(writer is not None and writer.available,
             "(m) the native checkpoint writer was not built")
     submitted = writer.submitted
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated() / 1e9
-    reset_host_reads()
-    with tempfile.TemporaryDirectory() as d:
-        uv, sigma, wall = tree_rung("(m)", op12, topo, guess, rung,
-                                    saveEachIteration=True, saveDir=d)
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        tag = checkpointing.latest_tag(d)
-        files = sorted(os.listdir(d))
-        vecs, meta = checkpointing.load_checkpoint(d, tag, TTNSVector,
-                                                   device=dev)
+    rung, peak = ladder_rung("(m)", dev, os.path.join(out, "m"), TREE_M["N"],
+                             TREE_M["params"], seed_rung=TREE_L["N"],
+                             seed_dir=os.path.join(out, "l"),
+                             checkpoint=True)
+    require(rung["zpve_cm1"] == TREE_M["zpve"], f"(m) zpve {rung['zpve_cm1']}")
+    check_rung("(m)", rung, TREE_M["ev"], TREE_M["res"])
+    files = check_checkpoints("(m)", os.path.join(
+        out, "m", f"ch3cn_excited_ckpt_N{TREE_M['N']}"), rung["topo"], dev)
     jobs = writer.submitted - submitted
-    print(f"[tree (m)] checkpoints: {jobs} files through the native writer "
-          f"({len(files)} on disk), last tag {tag} holds {len(vecs)} tree "
-          f"states, status cumIter {meta['status'].get('cumIter')}; TTNO "
-          f"edge ranks {ttno.ranks}; peak device memory {peak:.3f} GB, "
-          f"{peak - base:.3f} GB above the {base:.3f} GB allocated before "
-          f"the run", flush=True)
-    require(jobs == len(files) and jobs > 0 and tag is not None
-            and meta["status"].get("cumIter") == tag
-            and all(v.topo == topo and all(torch.isfinite(t).all()
-                                           for t in v.tensors) for v in vecs),
-            f"(m) checkpoints: {jobs} jobs, files {files}")
-    walls["(m) Lanczos"] = wall
+    require(jobs == files, f"(m) {jobs} writer jobs, {files} files")
+    walls["(m) Lanczos"] = rung["wall"]
 
-    # device against host (ROADMAP A.10): one applyOp (apply, then compress
-    # to bond 10) and one tree_als_solve at (m)'s options, on the card and
-    # on the CPU, the same TTNO and state
-    cpu = torch.device("cpu")
-    opts = tree_options(rung["maxD"], rung["L"])
-    v = TTNSVector(guess[0], opts, topo=topo).normalize().compress()
-    lin = opts["linearSystemArgs"]
-    als = dict(sign=1.0, maxD=lin["maxD"], eps=lin["eps"],
-               nSweep=lin["nSweep"], convTol=lin["convTol"],
-               local_tol=lin["siteTol"], local_maxiter=lin["linearIter"])
-    line = []
-    # the CPU takes ~1 minute per solve at this size: one timed call
-    for where, W, x, reps in ((dev, ttno, v, (5, 3)), (cpu, TTNO(topo, [
-            t.cpu() for t in ttno.tensors]), TTNSVector(
-                [t.cpu() for t in v.tensors], opts, topo=topo), (3, 1))):
-        warm = where.type == "cuda"
-        calls = [r + warm for r in reps]
-        reset_host_reads()
-        apply_ms = wall_ms(lambda: x.applyOp(W), reps[0], where, warm)
-        per_apply = {k: n // calls[0] for k, n in host_reads.items()}
-        reset_host_reads()
-        als_ms = wall_ms(lambda: tree_als_solve(topo, W.tensors, x.tensors,
-                                                sigma, **als), reps[1],
-                         where, warm)
-        per_solve = {k: n // calls[1] for k, n in host_reads.items()}
-        line.append(f"{where.type}: applyOp {apply_ms:.2f} ms ({per_apply}),"
-                    f" tree_als_solve {als_ms:.1f} ms ({per_solve})")
-    print(f"[tree A.10] bond {v.maxD}, N={rung['N']}, medians of "
-          f"5 / 3 (card) and 3 / 1 (CPU) calls, host clock, CPU threads "
-          f"{torch.get_num_threads()}: " + "; ".join(line), flush=True)
-    print(f"[tree A.10] one applyOp on the card, device time by kernel: "
+    # device time of the tree algebra (ROADMAP A.10): one applyOp (apply,
+    # then compress to bond 10) and one tree_als_solve at (m)'s options on
+    # the card; tools/tree_device_host.py times the same on the CPU
+    ttno = rung["op"]._ttno_cache[(rung["topo"], None)]
+    v = TTNSVector(rung["vectors"][0].tensors, excited_production.options(
+        TREE_M["params"]["maxD"], TREE_M["params"]["L"], 2),
+        topo=rung["topo"]).normalize().compress()
+    reset_host_reads()
+    apply_ms = wall_ms(lambda: v.applyOp(ttno), 5, dev)
+    per_apply = {k: n // 6 for k, n in host_reads.items()}
+    reset_host_reads()
+    lin = v.options["linearSystemArgs"]
+    als_ms = wall_ms(lambda: tree_als_solve(
+        rung["topo"], ttno.tensors, v.tensors, rung["sigma"], sign=1.0,
+        maxD=lin["maxD"], eps=lin["eps"], nSweep=lin["nSweep"],
+        convTol=lin["convTol"], local_tol=lin["siteTol"],
+        local_maxiter=lin["linearIter"]), 3, dev)
+    per_solve = {k: n // 4 for k, n in host_reads.items()}
+    print(f"[tree A.10] bond {v.maxD}, N={TREE_M['N']}, on the card, "
+          f"medians of 5 / 3 calls, host clock: applyOp {apply_ms:.2f} ms "
+          f"({per_apply}), tree_als_solve {als_ms:.1f} ms ({per_solve}); "
+          f"one applyOp's device time by kernel: "
           f"{'; '.join(device_times(lambda: v.applyOp(ttno))[:4])}",
           flush=True)
     return walls
+
+
+def flagship(dev, out):
+    """(r): the N = 42 rung of the excited ladder, seeded from the committed
+    N = 24 states (``--seed-rung 24``), at the parameters of
+    artifacts/ch3cn_production.jsonl:17, every iteration checkpointed
+    through the native writer.  Returns its wall."""
+    rung, peak = ladder_rung("(r)", dev, out, FLAGSHIP["N"],
+                             FLAGSHIP["params"],
+                             seed_rung=FLAGSHIP["seed_rung"],
+                             checkpoint=True)
+    rec = rung["record"]
+    require(rec["converged"] and rung["status"]["isConverged"],
+            "(r) not converged")
+    require(rung["zpve_cm1"] == FLAGSHIP["zpve"], f"(r) zpve "
+            f"{rung['zpve_cm1']}, want line 12's {FLAGSHIP['zpve']}")
+    ev_cm = check_rung("(r)", rung, FLAGSHIP["ev"], FLAGSHIP["res"])
+    check_checkpoints("(r)", os.path.join(
+        out, f"ch3cn_excited_ckpt_N{FLAGSHIP['N']}"), rung["topo"], dev)
+    for name, src in FLAGSHIP_SOURCES.items():
+        print(f"[tree (r)] against {name}: "
+              f"{', '.join(f'{a - b:+.4f}' for a, b in zip(ev_cm, src))} "
+              f"cm-1", flush=True)
+    print(f"[tree (r)] N={rec['N']} seeded from N={FLAGSHIP['seed_rung']}: "
+          f"cumIter {rec['cumIter']} (the record's 2), wall "
+          f"{rung['wall']:.2f} s, peak device memory {peak:.3f} GB, host "
+          f"reads {dict(host_reads)}", flush=True)
+    return rung["wall"]
+
+
+def run_examples(dev, out):
+    """(q): the ported example drivers on the card, each through its
+    ``run``, each held to its own oracle.  Returns {name: wall}."""
+    from eigensolvers_tpu_torch.examples import (
+        ch3cn_block_lanczos, ch3cn_dmrg_zpve, ch3cn_feast,
+        ch3cn_feast_production, ch3cn_production, ch3cn_targeted_lanczos,
+        chebyshev_window, driver_dense, feast_window, mps_sop_lanczos,
+        pyrazine_vibronic, spectrum_slicing, state_following_ho,
+        ttns_tree_lanczos)
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def near(vals, x):
+        vals = np.asarray(vals, float)
+        return float(vals[np.argmin(np.abs(vals - x))])
+
+    walls = {}
+
+    def example(name, fn, check):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        ok, what = check(r)
+        print(f"[q] {name}: {what}; wall {walls[name]:.2f} s", flush=True)
+        require(ok, f"(q) {name}: {what}")
+
+    o = lambda n: os.path.join(out, n)  # noqa: E731
+    for large in (False, True):
+        example(f"driver_dense{' --large' if large else ''}",
+                lambda: driver_dense.run(large, device=dev, out=o("dense")),
+                lambda r: (r["status"]["isConverged"] and rel(
+                    r["nearest"], r["exact"]) <= EX_TOL["dense"],
+                    f"{r['nearest']:.10f} against {r['exact']:.10f}"))
+    example("feast_window", lambda: feast_window.run(dev, o("feast")),
+            lambda r: (max(rel(near(r["ev"], e), e) for e in r["exact"])
+                       <= EX_TOL["feast"],
+                       f"{r['ev']} for the window levels {r['exact']}"))
+    example("chebyshev_window", lambda: chebyshev_window.run(dev, o("cheb")),
+            lambda r: (len(r["ev"]) == len(r["exact"]) and max(
+                rel(a, b) for a, b in zip(r["ev"], r["exact"]))
+                <= EX_TOL["cheb"], f"{r['ev']} for {r['exact']}"))
+    example(f"spectrum_slicing n={SLICING_EX['n']}",
+            lambda: spectrum_slicing.run(dev, **SLICING_EX),
+            lambda r: (r["max_err"] <= EX_TOL["slicing"],
+                       f"found {r['status']['found_total']} of "
+                       f"{len(r['exact'])}, max |ev err| {r['max_err']:.2e}"))
+    example("state_following_ho",
+            lambda: state_following_ho.run(dev, o("follow")),
+            lambda r: (rel(r["followed"], r["exact"]) <= EX_TOL["follow"],
+                       f"{r['followed']:.10f} against {r['exact']:.10f}"))
+    example("pyrazine_vibronic",
+            lambda: pyrazine_vibronic.run(dev, o("pyrazine")),
+            lambda r: (rel(r["level"], r["exact"]) <= EX_TOL["pyrazine"],
+                       f"{r['level']:.10f} against {r['exact']:.10f} a.u."))
+    example("mps_sop_lanczos", lambda: mps_sop_lanczos.run(dev, o("mps")),
+            lambda r: (r["rel_err"] <= EX_TOL["mps"],
+                       f"rel err {r['rel_err']:.1e}"))
+    example("ttns_tree_lanczos", lambda: ttns_tree_lanczos.run(dev, o("ttns")),
+            lambda r: (True, f"Krylov {r['krylov']:.10f}, ALS "
+                       f"{r['als']:.10f}, oracle {r['exact']:.10f}"))
+    pair8 = [e - TREE_L["zpve"] for e in TREE_L["ev"]]
+    example("ch3cn_feast_production N=8",
+            lambda: ch3cn_feast_production.run(
+                8, nc=4, maxit=2, nSweep=4, device=dev, out=o("tfeast")),
+            lambda r: (len(r["in_window_cm1"]) == 2 and all(
+                abs(a - b) <= EX_TOL["tree_feast_cm"]
+                for a, b in zip(r["in_window_cm1"], pair8)),
+                f"in window {r['in_window_cm1']} cm-1 (the N = 8 Lanczos "
+                f"pair {[round(e, 4) for e in pair8]})"))
+    example("ch3cn_dmrg_zpve 12 6",
+            lambda: ch3cn_dmrg_zpve.run(12, 6, device=dev),
+            lambda r: (abs(r["zpve_cm1"] - CHAIN_N14_CM) <= EX_TOL["dmrg_cm"],
+                       f"zpve {r['zpve_cm1']:.4f} cm-1"))
+    example("ch3cn_targeted_lanczos",
+            lambda: ch3cn_targeted_lanczos.run(device=dev, out=o("target")),
+            lambda r: (abs(r["zpve_cm1"] - CHAIN_N14_CM)
+                       <= EX_TOL["targeted_cm"],
+                       f"zpve {r['zpve_cm1']:.4f} cm-1"))
+    example("ch3cn_block_lanczos 8 8 4 2",
+            lambda: ch3cn_block_lanczos.run(8, 8, 4, 2, device=dev,
+                                            out=o("block")),
+            lambda r: (abs(near(r["rel_cm1"], TREE_TARGET_CM)
+                           - np.mean(pair8)) <= EX_TOL["block_cm"],
+                       f"levels above the DMRG zpve "
+                       f"{np.round(np.sort(r['rel_cm1']), 3)} cm-1, the one "
+                       f"nearest the target against the N = 8 pair "
+                       f"{[round(e, 4) for e in pair8]}"))
+    example("ch3cn_feast 6 4 8",
+            lambda: ch3cn_feast.run(6, 4, 8, device=dev, out=o("cfeast")),
+            lambda r: (len(r["errors_cm1"]) > 0 and max(r["errors_cm1"])
+                       <= EX_TOL["chain_feast_cm"],
+                       f"found {np.round(r['found_cm1'], 3)} cm-1, errors "
+                       f"against DMRG {r['errors_cm1']}"))
+    example("ch3cn_production 14 --seed-rung 14",
+            lambda: ch3cn_production.run([14], device=dev, out=o("ladder"),
+                                         seed_rung=14),
+            lambda r: (abs(r["rungs"][0]["zpve_cm1"] - CHAIN_N14_CM)
+                       <= EX_TOL["ladder_cm"],
+                       f"zpve {r['rungs'][0]['zpve_cm1']:.4f} cm-1 (the "
+                       f"committed rung {CHAIN_N14_CM})"))
+    return walls
+
+
+def row_library(dataT, idx, X, ncols, ref, tol):
+    """The library yardstick of a row block: one ``torch.sparse_bsr_tensor``
+    product of the block's rows (the stored blocks, ELL padding included)
+    with the whole x, held to ``ref()`` first; (ms or None, note)."""
+    nr, nb, B, _ = dataT.shape
+    crow = torch.arange(0, nr * nb + 1, nb, dtype=torch.int32,
+                        device=dataT.device)
+    vals = dataT.transpose(-1, -2).reshape(nr * nb, B, B).contiguous()
+    A = torch.sparse_bsr_tensor(crow, idx.reshape(-1).contiguous(), vals,
+                                size=(nr * B, ncols), check_invariants=False)
+    x = X if X.ndim == 1 else X.T.contiguous()
+    try:
+        y = A @ x
+        torch.cuda.synchronize()
+    except Exception as e:
+        return None, (f"refused: {type(e).__name__}: "
+                      f"{str(e).splitlines()[0][:200]}")
+    err = relerr(y.T if y.ndim == 2 else y, ref())
+    if not err <= tol:
+        return None, f"disagrees with the plain product: {err:.2e}"
+    ms = min(time_ms(lambda: A @ x), time_ms(lambda: A @ x))
+    names = "; ".join(kernel_names(lambda: A @ x))
+    return ms, (f"A @ x, A the rows' torch.sparse_bsr_tensor (rel err "
+                f"{err:.1e}); kernels: {names}")
 
 
 def row_blocks(op32, op64, op_high, dev):
@@ -717,14 +899,21 @@ def row_blocks(op32, op64, op_high, dev):
                            (6 if kind == "split" else 2) * elems * m,
                            PEAK_FLOPS["bf16" if kind == "split" else kind],
                            npad_out=per * B)
+        lib_ms, lib = None, NO_LIBRARY
+        if kind != "split":
+            lib_ms, lib = row_library(bl[0], idx[:per], X, npad,
+                                      lambda: plain(bl, idx[:per], X), tol)
         rows_out.append(dict(name=name, m=m, ms=ms_k, plain_ms=ms_p,
-                             bound_ms=b_ms, bound_by=b_by, err=max(errs)))
+                             bound_ms=b_ms, bound_by=b_by, err=max(errs),
+                             library_ms=lib_ms, library=lib))
         print(f"[n0] {name} m={m}: {ROW_RANGES} row blocks of {per} block "
               f"rows, each bitwise equal to the square launch's rows; rel "
               f"err against the plain rectangular version "
               f"{max(errs):.3e} (tol {tol:.0e}); rows [0, {per}): kernel "
               f"{ms_k:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-              f"{b_ms / ms_k:.0%}), plain {ms_p:.4f} ms", flush=True)
+              f"{b_ms / ms_k:.0%}), plain {ms_p:.4f} ms, library "
+              + (f"{lib_ms:.4f} ms [{lib}]" if lib_ms is not None else lib),
+              flush=True)
     for (name, m), rec in RECORDED_MS.items():
         X = x_of("f32", m)
         ms = min(time_ms(lambda: (bsr.bsr_matvec if m == 1 else
@@ -1603,11 +1792,15 @@ def main():
     for k, v in totals.items():
         require(v > 0, f"{k} was never launched by the main path")
 
-    # (l), (m): the CH3CN tree ladder; tensor-network contractions through
-    # torch (cuBLAS, cuSOLVER), no BSR kernel
+    # (l), (m): the CH3CN tree ladder through the ported excited driver;
+    # tensor-network contractions through torch (cuBLAS, cuSOLVER), no BSR
+    # kernel.  The example drivers write under build/ (their --out),
+    # emptied first: a rung found in the output's own log would be skipped
+    drivers_out = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(drivers_out, ignore_errors=True)
     bsr.reset_launch_counts()
     t0 = time.perf_counter()
-    tree_walls = tree_ladder(dev)
+    tree_walls = tree_ladder(dev, os.path.join(drivers_out, "tree"))
     require(not any(bsr.launches.values()),
             f"(l), (m) launched BSR kernels: {dict(bsr.launches)}")
     print(f"[tree] phases (l), (m) {time.perf_counter() - t0:.2f} s: "
@@ -1727,11 +1920,40 @@ def main():
               flush=True)
     finally:
         dist.destroy_process_group()
+
+    # the slice's operators go before the examples and the flagship, whose
+    # N = 42 rung alone holds ~70 GB at its peak
+    del op32, op64, op_high, sop32, refs, block
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[q] {torch.cuda.memory_allocated() / 1e9:.3f} GB still "
+          f"allocated before (q) and (r)", flush=True)
+
+    # (q): the ported example drivers; no BSROperator among them, so no BSR
+    # kernel may launch
+    bsr.reset_launch_counts()
+    t0 = time.perf_counter()
+    ex_walls = run_examples(dev, os.path.join(drivers_out, "examples"))
+    require(not any(bsr.launches.values()),
+            f"(q) launched BSR kernels: {dict(bsr.launches)}")
+    print(f"[q] phase {time.perf_counter() - t0:.2f} s; no BSR kernel "
+          f"launched; walls: " + ", ".join(f"{k} {v:.2f} s"
+                                           for k, v in ex_walls.items()),
+          flush=True)
+
+    # (r): the flagship's N = 42 rung
+    bsr.reset_launch_counts()
+    t0 = time.perf_counter()
+    flagship(dev, os.path.join(drivers_out, "flagship"))
+    require(not any(bsr.launches.values()),
+            f"(r) launched BSR kernels: {dict(bsr.launches)}")
+    print(f"[r] phase {time.perf_counter() - t0:.2f} s", flush=True)
     for r in rect_rows:
         print(f"[row] {r['name']} m={r['m']} rows [0, 512) of 2048 (whole "
               f"x): kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
-              f"not timed", flush=True)
+              + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+                 else "none") + f" [{r['library']}]", flush=True)
 
     # -- 5. results ---------------------------------------------------------
     src = "eigensolvers_tpu_torch/csrc/"

@@ -8,19 +8,29 @@ same numbers to both packages; operators cross through
 the state-dict round trip.
 """
 
+import importlib.util
+import json
+import os
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
 
 import jax
+import eigensolvers_tpu
 from eigensolvers_tpu import JaxVector
 from eigensolvers_tpu.utils import checkpointing as jax_ckpt
 from eigensolvers_tpu.utils import subspace as jax_subspace
+from eigensolvers_tpu.vectors import mps_sweeps as jax_mps_sweeps
+from eigensolvers_tpu.vectors import ttns_sweeps as jax_ttns_sweeps
 
 from eigensolvers_tpu_torch import TorchVector
 from eigensolvers_tpu_torch.config import FeastConfig
 from eigensolvers_tpu_torch.convert import operator_from_arrays
+from eigensolvers_tpu_torch.examples import _common as EXC
 from eigensolvers_tpu_torch.ops.operators import resolve_precision
 from eigensolvers_tpu_torch.utils import checkpointing as torch_ckpt
 from eigensolvers_tpu_torch.utils import subspace as torch_subspace
@@ -155,3 +165,106 @@ def test_checkpoints_cross_between_packages(tmp_path):
     assert torch_ckpt.latest_tag(str(tmp_path / "j")) == 5
     writer = torch_ckpt.default_async_writer()
     assert writer is not None and writer.available
+
+
+# --------------------------------------------------------------------------
+# the example drivers (tests/test_torch_examples*.py)
+# --------------------------------------------------------------------------
+EXAMPLES = pathlib.Path(__file__).resolve().parents[1] / "examples"
+
+
+@pytest.fixture(scope="module")
+def one_blas_thread():
+    """One BLAS thread while a test module runs: the sweeps' many small host
+    solves (scipy over OpenBLAS, 8 threads by default) spin against the
+    other test workers and run 10-40x slower under the six-worker suite."""
+    from threadpoolctl import threadpool_limits
+    with threadpool_limits(1):
+        yield
+
+
+def jax_example(name):
+    """The JAX package's ``examples/<name>.py`` as a fresh module."""
+    spec = importlib.util.spec_from_file_location(
+        f"jax_example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_jax_example(monkeypatch, tmp_path, name, argv=(), spies=(),
+                    env=None, out=None):
+    """Run a JAX example's ``main`` with ``argv`` and ``env`` in
+    ``tmp_path``.  ``spies``: (module, attribute) pairs whose functions
+    are wrapped to record each call's return value (the example imports
+    them inside ``main``, so it picks the wrappers up).  ``out``: a
+    directory its ``ART``/``LOG`` globals are pointed at, so nothing
+    reaches the repository's ``artifacts/``.  Returns (module, {attribute:
+    [results]})."""
+    mod = jax_example(name)
+    if out is not None:
+        monkeypatch.setattr(mod, "ART", str(out))
+        monkeypatch.setattr(mod, "LOG",
+                            os.path.join(str(out), "ch3cn_production.jsonl"))
+    calls = {}
+    for owner, attr in spies:
+        fn = getattr(owner, attr)
+        seen = calls.setdefault(attr, [])
+
+        def wrapped(*a, _fn=fn, _seen=seen, **k):
+            res = _fn(*a, **k)
+            _seen.append(res)
+            return res
+        monkeypatch.setattr(owner, attr, wrapped)
+    for k, v in (env or {}).items():
+        monkeypatch.setenv(k, str(v))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(sys, "argv", [f"{name}.py"] + [str(a) for a in argv])
+    assert mod.main() == 0
+    return mod, calls
+
+
+LANCZOS = eigensolvers_tpu, "inexactLanczosDiagonalization"
+FEAST = eigensolvers_tpu, "feastDiagonalization"
+DMRG = jax_mps_sweeps, "dmrg_eigensolve"
+TREE_DMRG = jax_ttns_sweeps, "tree_dmrg_eigensolve"
+EV_RTOL, DMRG_RTOL, REC_CM = 1e-8, 1e-10, 1.5e-4
+# the tiny ladders: maxD 4, L 3, maxit 1
+TINY = dict(maxD=4, L=3, maxit=1)
+TINY_ENV = {"CH3CN_MAXD": 4, "CH3CN_L": 3, "CH3CN_MAXIT": 1}
+# a tree zpve record for the rungs that have none (both packages read it)
+FAKE_ZPVE = {"N": 4, "topology": "tree", "zpve_cm1": 9836.5}
+
+
+def close(a, b, rtol=EV_RTOL):
+    np.testing.assert_allclose(np.real(np.asarray(a, complex)),
+                               np.real(np.asarray(b, complex)),
+                               rtol=rtol, atol=0)
+
+
+def nearest(ev, x):
+    ev = np.real(np.asarray(ev))
+    return float(ev[np.argmin(np.abs(ev - x))])
+
+
+def same_record(got, want, cm_keys=()):
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    for k, v in want.items():
+        if k == "wall_s":
+            continue
+        if k in cm_keys or k == "residual":
+            tol = REC_CM if k != "residual" else 1e-3 * abs(v) + 1e-12
+            np.testing.assert_allclose(got[k], v, rtol=0, atol=tol, err_msg=k)
+        else:
+            assert got[k] == v, (k, got[k], v)
+
+
+def records(d):
+    return EXC.read_records(os.path.join(str(d), EXC.LOG_NAME))
+
+
+def seed_log(d, *recs):
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(str(d), EXC.LOG_NAME), "a") as f:
+        for r in recs:
+            f.write(json.dumps(r) + "\n")

@@ -62,7 +62,35 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing():
             "eigensolvers_tpu_torch.parallel.spmd",
             "eigensolvers_tpu_torch.parallel.launch",
             "eigensolvers_tpu_torch.graft_entry"} <= set(got["modules"])
+    assert {f"eigensolvers_tpu_torch.examples.{name}"
+            for name in PORTED_EXAMPLES + ("_common",)} <= set(got["modules"])
     assert got["built"] == 0 and not got["triton"]
+
+
+# the JAX package's examples/ with a counterpart in the port; the rest are
+# queued (ROADMAP A.15)
+PORTED_EXAMPLES = (
+    "driver_dense", "ch3cn_excited_production", "ch3cn_tree_production",
+    "feast_window", "chebyshev_window", "spectrum_slicing",
+    "state_following_ho", "pyrazine_vibronic", "mps_sop_lanczos",
+    "ttns_tree_lanczos", "ch3cn_feast_production", "ch3cn_dmrg_zpve",
+    "ch3cn_targeted_lanczos", "ch3cn_block_lanczos", "ch3cn_feast",
+    "ch3cn_production")
+QUEUED_EXAMPLES = ("ch3cn_maxd_ladder", "ch3cn_representation_check",
+                   "ch3cn_representation_2mode")
+
+
+def test_every_example_is_ported_or_queued():
+    """Each ``examples/X.py`` of the JAX package is either
+    ``eigensolvers_tpu_torch/examples/X.py`` (with ``run`` and ``main``,
+    which the import probe above loads without jax) or queued; so is
+    ``run_clean``."""
+    jax_side = sorted(p.stem for p in (PKG.parent / "examples").glob("*.py"))
+    assert sorted(PORTED_EXAMPLES + QUEUED_EXAMPLES) == jax_side
+    for name in PORTED_EXAMPLES:
+        text = (PKG / "examples" / f"{name}.py").read_text()
+        assert "\ndef run(" in text and "\ndef main(" in text, name
+    assert (PKG / "examples" / "run_clean").stat().st_mode & 0o111
 
 
 def test_sources_never_import_jax_or_the_jax_package():
