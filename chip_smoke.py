@@ -102,6 +102,18 @@ Phases (any failure raises and the script exits non-zero):
      and held to artifacts/ch3cn_production.jsonl:17 within 0.01 cm-1,
      with its distance to both sources of ROADMAP C.1, its wall, peak
      device memory and host reads;
+   - (s) the last example drivers and the FEAST-filter tool, each through
+     its ``run``, with wall, peak device memory and host reads: (s1) the
+     chain maxD ladder at the production basis (N = 42, 12 modes, maxD 10
+     -> 16) seeded from the committed N = 42 state, each rung held to its
+     record within 0.01 cm-1; (s2) the DVR representation check at N = 42
+     from the committed FBR state (the record's collapse below 0
+     reproduced), then both representations at N = 14, held to the JAX
+     package's values;
+     (s3) the 2-mode study (dense f64 eigvalsh on the card up to the N =
+     80 oracle, then the 4-mode DMRG rows at N = 42) held to its record;
+     (s4) the FEAST-filter diagnosis on the N = 8 tree (complex ALS
+     contour solves), every number finite; no BSR kernel launched;
 5. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
    and a final JSON status line.
 """
@@ -216,15 +228,19 @@ CHEB_SLICE = dict(m0=12, eConv=1e-6, maxit=8, npackets=8,
 # run (k): spectrum slicing over (f)'s window on the f64 slice operator, on
 # (j)'s bounds: KPM moments of degree 2,000 from 8 probes (gated: each
 # window count within max(2, 30 %) of the exact count), then two
-# load-balanced FEAST windows with (f)'s solve options and (f)'s 8 outer
-# iterations, and one polish round; (f)'s gates, each level found once.
-# With 4 outer iterations unconverged Ritz pairs polished onto the same
-# states and half the levels were dropped as duplicates; a second polish
-# round solves a system singular to machine precision at the first round's
-# Rayleigh quotient, and the Jacobi-preconditioned MINRES then moves the
-# pairs off their states (PERF.md §6)
+# load-balanced FEAST windows with (f)'s solve options but MINRES capped at
+# 1,500 iterations (at (f)'s 2,500 the run was a fifth of the script's
+# wall; capped, the first window ends unconverged after its 8 iterations
+# and the polish certifies every level), (f)'s 8 outer iterations, and one
+# polish round; (f)'s gates, each level found once.  With 4 outer
+# iterations unconverged Ritz pairs polished onto the same states and half
+# the levels were dropped as duplicates; a second polish round solves a
+# system singular to machine precision at the first round's Rayleigh
+# quotient, and the Jacobi-preconditioned MINRES then moves the pairs off
+# their states (PERF.md §6)
 SLICING = dict(degree=2000, nProbes=8, seed=0, nWindows=2, maxit=8,
-               polish_rounds=1, eConv=1e-6, count_rtol=0.3, count_atol=2)
+               polish_rounds=1, eConv=1e-6, count_rtol=0.3, count_atol=2,
+               linearIter=1500)
 # run (h): the CH3CN 6-mode cut of bench.py's bench_sop; the apply's gates
 # are the bench's: f32 within 3x the numpy f32 error floor (+1e-10), f64
 # within 1e-10 of max |y| of the numpy f64 apply (summation order).  The
@@ -272,13 +288,16 @@ FLAGSHIP_SOURCES = {
 # H100 machines, which brought the whole script to 1,148 s of its 1,200,
 # so it runs the same matrix family and spacing at n = 100 (15 levels in
 # 50.25..80.25).  11-16 cut to fit the phase in ~150 s: tree FEAST at
-# N = 8 (line 3's zpve) with 4 nodes, 2 outer iterations and 4 sweeps per
-# solve; the chain DMRG at N = 12, maxD 6 (run_clean -full's arguments);
-# the block Lanczos at N = 8, L 4, maxit 2; chain FEAST on 4 modes at
-# bond 8 (its default, 5 modes at bond 16, took 56 s on the card); the
-# chain ladder's N = 14 rung seeded from the committed
-# artifacts/ch3cn_state_N14.npz (--seed-rung 14); the targeted Lanczos at
-# its defaults.  Each example's own oracle is a gate:
+# N = 8 (line 3's zpve) with 4 nodes, 2 outer iterations and 2 sweeps per
+# solve (4 sweeps move the pair by 0.0006 / 0.0010 cm-1, to 362.0353 /
+# 362.0363); the chain DMRG at N = 12, maxD 6 (run_clean -full's
+# arguments); the block Lanczos at N = 8, L 4, maxit 2; chain FEAST on 4
+# modes at bond 8 (its default, 5 modes at bond 16, took 56 s on the
+# card); the chain ladder's N = 14 rung seeded from the committed
+# artifacts/ch3cn_state_N14.npz (--seed-rung 14); the targeted Lanczos
+# with its guess at N = 6 and its basis at N = 8, bond 8 (zpve
+# 9837.5687; its defaults, 8 / 12 / 10, give 9837.4818 in 1.7x the
+# wall).  Each example's own oracle is a gate:
 EX_TOL = dict(
     dense=1e-6,        # driver_dense: the nearest exact level, relative
     feast=1e-6,        # feast_window: every exact window level, relative
@@ -298,6 +317,36 @@ EX_TOL = dict(
     block_cm=1.0, ladder_cm=0.01)
 TREE_TARGET_CM = 360.0
 CHAIN_N14_CM = 9837.4818                      # jsonl line 1
+# run (s): the last example drivers and the FEAST-filter tool.  (s1) the
+# chain maxD ladder at the production basis (N = 42, all 12 modes, rungs
+# 10 -> 16, 8 sweeps each) seeded from the committed
+# artifacts/ch3cn_state_N42.npz: each rung within 0.01 cm-1 of its record
+# (jsonl lines 5-8, 9837.4792 at every rung).
+LADDER = dict(Ds=(10, 12, 14, 16), N=42, nSweep=8, zpve=9837.4792, tol=0.01)
+# (s2) the representation check at full width (N = 42, DVR, maxD 10, 12
+# sweeps from the committed FBR state): the collapse of the JAX record
+# (jsonl line 9, -551,362.872 cm-1) reproduced, i.e. a ZPVE below 0; its
+# distance to the record is printed, not gated (a DMRG run into the PES
+# turnover follows roundoff).  Then at N = 14, maxD 10, 4 sweeps, seeded
+# from the committed artifacts/ch3cn_state_N14.npz, both representations,
+# each held within 1e-6 relative of the JAX package's value at the same
+# size (its dmrg_eigensolve with these arguments, run on the CPU with jax
+# 0.9 and scipy 1.17; with the script's 12 sweeps the DVR reads
+# 9837.478188412291):
+REP_COLLAPSE_CM = -551362.872
+REP_CHECK = dict(N=14, maxD=10, nSweep=4, rtol=1e-6,
+                 zpve={"dvr": 9837.478898056208, "fbr": 9837.482799178808})
+# (s3) the 2-mode study (jsonl line 21): the N = 80 oracle and every
+# FBR/DVR row at N = 14 / 28 / 42 within 1e-5 cm-1 of 2673.794874, none
+# collapsed; the 4-mode FBR and DVR DMRG rows within 1e-4 cm-1 of
+# 3832.145829.  Its 6-mode row (115 s at maxD 24, 216 s at maxD 32 on an
+# NVIDIA H100 80GB HBM3, 700 W) runs alone: python3 -m
+# eigensolvers_tpu_torch.examples.ch3cn_representation_2mode.
+REP_2MODE = dict(zpve=2673.794874, dense_tol=1e-5, mode_cuts=(4,),
+                 four_mode=3832.145829, dmrg_tol=1e-4)
+# (s4) the FEAST-filter diagnosis on the N = 8 tree: every residual and
+# Rayleigh quotient finite
+DIAG_N = 8
 SLICING_EX = dict(n=100, interval=(50.25, 80.25))
 # run (n0): the slice operator's 2048 block rows in 4 ranges of 512, each
 # launched with the whole x; the square B1 / B3 times that PERF.md's
@@ -754,7 +803,7 @@ def run_examples(dev, out):
     pair8 = [e - TREE_L["zpve"] for e in TREE_L["ev"]]
     example("ch3cn_feast_production N=8",
             lambda: ch3cn_feast_production.run(
-                8, nc=4, maxit=2, nSweep=4, device=dev, out=o("tfeast")),
+                8, nc=4, maxit=2, nSweep=2, device=dev, out=o("tfeast")),
             lambda r: (len(r["in_window_cm1"]) == 2 and all(
                 abs(a - b) <= EX_TOL["tree_feast_cm"]
                 for a, b in zip(r["in_window_cm1"], pair8)),
@@ -764,8 +813,9 @@ def run_examples(dev, out):
             lambda: ch3cn_dmrg_zpve.run(12, 6, device=dev),
             lambda r: (abs(r["zpve_cm1"] - CHAIN_N14_CM) <= EX_TOL["dmrg_cm"],
                        f"zpve {r['zpve_cm1']:.4f} cm-1"))
-    example("ch3cn_targeted_lanczos",
-            lambda: ch3cn_targeted_lanczos.run(device=dev, out=o("target")),
+    example("ch3cn_targeted_lanczos 6 8 8",
+            lambda: ch3cn_targeted_lanczos.run(6, 8, 8, device=dev,
+                                               out=o("target")),
             lambda r: (abs(r["zpve_cm1"] - CHAIN_N14_CM)
                        <= EX_TOL["targeted_cm"],
                        f"zpve {r['zpve_cm1']:.4f} cm-1"))
@@ -791,6 +841,106 @@ def run_examples(dev, out):
                        <= EX_TOL["ladder_cm"],
                        f"zpve {r['rungs'][0]['zpve_cm1']:.4f} cm-1 (the "
                        f"committed rung {CHAIN_N14_CM})"))
+    return walls
+
+
+def last_examples(dev, out):
+    """(s): the maxD ladder at N = 42, the representation check, the 2-mode
+    study and the FEAST-filter diagnosis on the card, each through its
+    ``run`` and held to its gates.  Returns {piece: wall}."""
+    from eigensolvers_tpu_torch.examples import (
+        ch3cn_maxd_ladder, ch3cn_representation_2mode,
+        ch3cn_representation_check)
+    from eigensolvers_tpu_torch.tools import diag_feast_filter
+
+    walls = {}
+
+    def piece(name, fn):
+        reset_host_reads()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        print(f"[s] {name}: wall {walls[name]:.2f} s, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, host reads "
+              f"{dict(host_reads)}", flush=True)
+        return r
+
+    o = lambda n: os.path.join(out, n)  # noqa: E731
+    # (s1)
+    lad = piece("(s1) maxD ladder N=42", lambda: ch3cn_maxd_ladder.run(
+        LADDER["Ds"], N=LADDER["N"], nSweep=LADDER["nSweep"], device=dev,
+        out=o("ladder")))
+    require(lad["seed"] == os.path.join(examples._common.ART,
+                                        f"ch3cn_state_N{LADDER['N']}.npz"),
+            f"(s1) seeded from {lad['seed']}")
+    require([r["maxD"] for r in lad["rungs"]] == list(LADDER["Ds"]),
+            f"(s1) rungs {[r['maxD'] for r in lad['rungs']]}")
+    for r in lad["rungs"]:
+        d = r["zpve_cm1"] - LADDER["zpve"]
+        print(f"[s1] maxD {r['maxD']}: zpve {r['zpve_cm1']:.6f} cm-1, "
+              f"{d:+.6f} from the record's {LADDER['zpve']}; state_maxD "
+              f"{r['record']['state_maxD']} (the record's 10); wall "
+              f"{r['wall']:.2f} s", flush=True)
+        require(abs(d) <= LADDER["tol"], f"(s1) maxD {r['maxD']}: zpve "
+                f"{r['zpve_cm1']}, record {LADDER['zpve']}")
+    print(f"[s1] MPO bonds {lad['mpo_bonds']}", flush=True)
+    # (s2)
+    r = piece("(s2) representation check dvr N=42",
+              lambda: ch3cn_representation_check.run(device=dev,
+                                                     out=o("rep42")))
+    print(f"[s2] dvr N=42 maxD 10, 12 sweeps from the committed FBR state: "
+          f"zpve {r['zpve_cm1']:.4f} cm-1, "
+          f"{r['zpve_cm1'] - REP_COLLAPSE_CM:+.4f} from the JAX record's "
+          f"{REP_COLLAPSE_CM}", flush=True)
+    require(r["seeded"] and r["zpve_cm1"] < 0, f"(s2) dvr N=42: zpve "
+            f"{r['zpve_cm1']}, the record's collapse not reproduced")
+    for rep in ("dvr", "fbr"):
+        want = REP_CHECK["zpve"][rep]
+        r = piece(f"(s2) representation check {rep} N={REP_CHECK['N']}",
+                  lambda: ch3cn_representation_check.run(
+                      N=REP_CHECK["N"], maxD=REP_CHECK["maxD"], rep=rep,
+                      nSweep=REP_CHECK["nSweep"], device=dev,
+                      out=o(f"rep_{rep}")))
+        rel = abs(r["zpve_cm1"] - want) / abs(want)
+        print(f"[s2] {rep} N={REP_CHECK['N']} maxD {REP_CHECK['maxD']}, "
+              f"{REP_CHECK['nSweep']} sweeps from the committed FBR state: "
+              f"zpve {r['zpve_cm1']:.6f} cm-1, the JAX package's {want} "
+              f"(rel {rel:.2e}); MPO bonds {r['mpo_bonds']}", flush=True)
+        require(r["seeded"] and rel <= REP_CHECK["rtol"],
+                f"(s2) {rep}: zpve {r['zpve_cm1']}, want {want}")
+    # (s3)
+    st = piece("(s3) 2-mode study", lambda: ch3cn_representation_2mode.run(
+        mode_cuts=REP_2MODE["mode_cuts"], device=dev, out=o("rep2")))
+    dense = [r for r in st["rows"] if "nModes" not in r]
+    require(abs(st["oracle_cm1"] - REP_2MODE["zpve"]) <= REP_2MODE["dense_tol"]
+            and len(dense) == 6 and all(
+                abs(r["zpve_cm1"] - REP_2MODE["zpve"])
+                <= REP_2MODE["dense_tol"] and r["n_collapsed_below"] == 0
+                for r in dense),
+            f"(s3) oracle {st['oracle_cm1']}, rows {dense}")
+    four = [st["dmrg_cm1"][4, rep] for rep in ("fbr", "dvr")]
+    require(all(abs(z - REP_2MODE["four_mode"]) <= REP_2MODE["dmrg_tol"]
+                for z in four), f"(s3) 4-mode rows {four}")
+    rows = [(r["representation"], r["N"], r["zpve_cm1"],
+             r["lowest_state_cm1"]) for r in dense]
+    print(f"[s3] oracle {st['oracle_cm1']:.6f} cm-1; dense rows (rep, N, "
+          f"zpve, lowest) {rows}; DMRG rows "
+          f"{[r for r in st['rows'] if 'nModes' in r]}; walls "
+          f"{ {k: round(v, 2) for k, v in st['walls'].items()} }", flush=True)
+    # (s4)
+    dg = piece(f"(s4) FEAST filter diagnosis N={DIAG_N}",
+               lambda: diag_feast_filter.run(DIAG_N, device=dev))
+    for r in dg["rows"]:
+        print(f"[s4] N={DIAG_N} [{r['name']}] guess RQ "
+              f"{r['guess_rq_cm1']:.4f} cm-1, rel res {r['rel_res']:.6e}, "
+              f"filtered RQ {r['filtered_rq_cm1']:.4f} cm-1, |x| "
+              f"{r['norm_x']:.6e}, solve {r['wall']:.2f} s", flush=True)
+        require(np.isfinite([r["guess_rq_cm1"], r["rel_res"],
+                             r["filtered_rq_cm1"], r["norm_x"]]).all(),
+                f"(s4) {r}")
     return walls
 
 
@@ -1548,7 +1698,8 @@ def main():
             maxit=sl["maxit"], polish_rounds=sl["polish_rounds"],
             degree=sl["degree"], nProbes=sl["nProbes"], bounds=spec,
             seed=sl["seed"],
-            options={"linearSystemArgs": dict(FEAST_LINEAR, report=report)})
+            options={"linearSystemArgs": dict(
+                FEAST_LINEAR, linearIter=sl["linearIter"], report=report)})
     wins = st["windows"]
     polished = [] if st["residuals"] is None else st["residuals"]
     k3 = "bsr_spmm"
@@ -1948,6 +2099,20 @@ def main():
     require(not any(bsr.launches.values()),
             f"(r) launched BSR kernels: {dict(bsr.launches)}")
     print(f"[r] phase {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # (s): the last example drivers and the tool, after (r)'s memory is
+    # freed; chain and tree sweeps, dense eigvalsh: no BSR kernel
+    gc.collect()
+    torch.cuda.empty_cache()
+    bsr.reset_launch_counts()
+    t0 = time.perf_counter()
+    s_walls = last_examples(dev, os.path.join(drivers_out, "last"))
+    require(not any(bsr.launches.values()),
+            f"(s) launched BSR kernels: {dict(bsr.launches)}")
+    print(f"[s] phase {time.perf_counter() - t0:.2f} s; no BSR kernel "
+          f"launched; walls: " + ", ".join(f"{k} {v:.2f} s"
+                                           for k, v in s_walls.items()),
+          flush=True)
     for r in rect_rows:
         print(f"[row] {r['name']} m={r['m']} rows [0, 512) of 2048 (whole "
               f"x): kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "

@@ -14,8 +14,8 @@ The chain drivers' parity is in ``tests/test_torch_examples_chain.py``.
 
 Also: ``--seed-rung`` gives the next rung of a ladder run from the rung
 below; the tree ZPVE ladder's depth-confirm branch raises a clear error
-where the JAX driver crashes (ROADMAP C.3); no ported CH3CN driver writes
-into ``artifacts/``."""
+where the JAX driver crashes (ROADMAP C.3); no ported CH3CN driver (nor the
+FEAST-filter tool) writes into ``artifacts/``."""
 
 import hashlib
 import os
@@ -32,15 +32,20 @@ from test_torch_common import (one_blas_thread,  # noqa: F401
 from eigensolvers_tpu_torch.examples import _common as C
 from eigensolvers_tpu_torch.examples import (
     ch3cn_block_lanczos, ch3cn_dmrg_zpve, ch3cn_excited_production,
-    ch3cn_feast, ch3cn_feast_production, ch3cn_production,
-    ch3cn_targeted_lanczos, ch3cn_tree_production)
+    ch3cn_feast, ch3cn_feast_production, ch3cn_maxd_ladder,
+    ch3cn_production, ch3cn_representation_2mode,
+    ch3cn_representation_check, ch3cn_targeted_lanczos,
+    ch3cn_tree_production)
 from eigensolvers_tpu_torch.models.molecules import ch3cn_tree
+from eigensolvers_tpu_torch.tools import diag_feast_filter
 from eigensolvers_tpu_torch.vectors.ttns import ttns_embed_physical
 
 CH3CN_DRIVERS = ("ch3cn_excited_production", "ch3cn_tree_production",
                  "ch3cn_feast_production", "ch3cn_dmrg_zpve",
                  "ch3cn_targeted_lanczos", "ch3cn_block_lanczos",
-                 "ch3cn_feast", "ch3cn_production")
+                 "ch3cn_feast", "ch3cn_production", "ch3cn_maxd_ladder",
+                 "ch3cn_representation_check", "ch3cn_representation_2mode",
+                 "diag_feast_filter")
 RAN = set()
 
 
@@ -227,6 +232,14 @@ TINY_RUNS = {
     "ch3cn_feast": lambda o: ch3cn_feast.run(4, 4, 4, device="cpu", out=o),
     "ch3cn_production": lambda o: ch3cn_production.run(
         [5], device="cpu", out=o, **TINY),
+    "ch3cn_maxd_ladder": lambda o: ch3cn_maxd_ladder.run(
+        [3], N=4, nSweep=1, device="cpu", out=o),
+    "ch3cn_representation_check": lambda o: ch3cn_representation_check.run(
+        N=4, maxD=3, nSweep=1, device="cpu", out=o),
+    "ch3cn_representation_2mode": lambda o: ch3cn_representation_2mode.run(
+        oracle_N=6, Ns=(4,), mode_cuts=(3,), N_dmrg=4, maxD=4, nSweep=1,
+        device="cpu", out=o),
+    "diag_feast_filter": lambda o: diag_feast_filter.run(3, device="cpu"),
 }
 
 

@@ -19,6 +19,15 @@ import __graft_entry__ as jge
 
 from eigensolvers_tpu_torch import graft_entry as ge
 
+# one intra-op thread per worker, as every port test that imports
+# test_torch_common has: the audit's one-rank baseline runs in this
+# process, and its wall bound compares it with gloo ranks that run one
+# thread each (parallel/launch.py).  Without the pin the baseline's threads
+# depended on which files the worker had run before: with the default
+# threads it ran several times faster than a one-thread rank, and the
+# bound failed when the other workers loaded the host.
+torch.set_num_threads(1)
+
 PIN = {"per_pass": {"allreduce_x": 2, "allgather_x": 1},
        "one_shot": {"allreduce_x": 4, "allgather_x": 3}}
 

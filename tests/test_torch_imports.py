@@ -64,20 +64,29 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing():
             "eigensolvers_tpu_torch.graft_entry"} <= set(got["modules"])
     assert {f"eigensolvers_tpu_torch.examples.{name}"
             for name in PORTED_EXAMPLES + ("_common",)} <= set(got["modules"])
+    assert {f"eigensolvers_tpu_torch.tools.{name}"
+            for name in PORTED_TOOLS} <= set(got["modules"])
     assert got["built"] == 0 and not got["triton"]
 
 
-# the JAX package's examples/ with a counterpart in the port; the rest are
-# queued (ROADMAP A.15)
+# the JAX package's examples/ with a counterpart in the port; none is
+# queued any more (ROADMAP A.15 is done)
 PORTED_EXAMPLES = (
     "driver_dense", "ch3cn_excited_production", "ch3cn_tree_production",
     "feast_window", "chebyshev_window", "spectrum_slicing",
     "state_following_ho", "pyrazine_vibronic", "mps_sop_lanczos",
     "ttns_tree_lanczos", "ch3cn_feast_production", "ch3cn_dmrg_zpve",
     "ch3cn_targeted_lanczos", "ch3cn_block_lanczos", "ch3cn_feast",
-    "ch3cn_production")
-QUEUED_EXAMPLES = ("ch3cn_maxd_ladder", "ch3cn_representation_check",
-                   "ch3cn_representation_2mode")
+    "ch3cn_production", "ch3cn_maxd_ladder", "ch3cn_representation_check",
+    "ch3cn_representation_2mode")
+QUEUED_EXAMPLES = ()
+# the JAX package's tools/: ported under eigensolvers_tpu_torch/tools/, or
+# left out with the reason
+PORTED_TOOLS = ("diag_feast_filter",)
+LEFT_OUT_TOOLS = {
+    "feast_partial_record": "appends hard-coded, empty rows (ROADMAP C.3)",
+    "gen_readme_perf": "reads the earlier benchmark's results; waits for "
+                       "the port's own benchmark"}
 
 
 def test_every_example_is_ported_or_queued():
@@ -91,6 +100,20 @@ def test_every_example_is_ported_or_queued():
         text = (PKG / "examples" / f"{name}.py").read_text()
         assert "\ndef run(" in text and "\ndef main(" in text, name
     assert (PKG / "examples" / "run_clean").stat().st_mode & 0o111
+
+
+def test_every_tool_is_ported_or_left_out():
+    """Each ``tools/X.py`` of the JAX package is
+    ``eigensolvers_tpu_torch/tools/X.py`` (with ``run`` and ``main``) or
+    named in ``LEFT_OUT_TOOLS`` with its reason, and no left-out tool has a
+    counterpart."""
+    jax_side = sorted(p.stem for p in (PKG.parent / "tools").glob("*.py"))
+    assert sorted(PORTED_TOOLS + tuple(LEFT_OUT_TOOLS)) == jax_side
+    for name in PORTED_TOOLS:
+        text = (PKG / "tools" / f"{name}.py").read_text()
+        assert "\ndef run(" in text and "\ndef main(" in text, name
+    for name, why in LEFT_OUT_TOOLS.items():
+        assert why and not (PKG / "tools" / f"{name}.py").exists(), name
 
 
 def test_sources_never_import_jax_or_the_jax_package():
