@@ -15,14 +15,18 @@ Phases (any failure raises and the script exits non-zero):
    small shapes, with errors and CUDA-event timings: the single-vector SpMV
    (B1 ``bsr_spmv``, B2 ``bsr_spmv_split``) and the multi-vector product
    (B3 ``bsr_spmm``, ``bsr_spmm_split``) for m = 1, 2, 4, 6, 8, 12, 16,
-   32, 48 and run (f)'s 64 vectors, and across the kernels' tiles and lane
-   chunks (both read the blocks once for up to 32 lanes and run more as
-   chunks of 32; B2 is the tensor-core ``bsr_spmm_split`` launched with
-   m = 1); the bf16x3 kernels against the exact split product, with a
-   signature that tells them from a true-f32 product.  Beside each time:
-   its bound (the larger of the bytes over the HBM rate and the flops over
-   the peak rate of their type) and, for the f32/f64 products, the time
-   of the one PyTorch call that computes the same function (a
+   32, 48, run (f)'s 64 vectors, and 96 and 128 (FEAST with m0 12 and 16
+   at nc 8), and across the kernels' tiles and lane chunks (``bsr_spmm``
+   reads the blocks once for up to 16 lanes on the CUDA cores and for up
+   to 64 on the FP64 tensor cores from 17 lanes on, in f64 and f32, and
+   runs more as chunks of 64; ``bsr_spmm_split`` reads them once for up to
+   32 lanes and runs more as chunks of 32; B2 is the tensor-core
+   ``bsr_spmm_split`` launched with m = 1); the bf16x3 kernels against the
+   exact split product, with a signature that tells them from a true-f32
+   product.  Beside each time: its bound (the larger of the bytes over
+   the HBM rate and the flops over the peak rate of their type, f64 at its
+   tensor cores' rate) and, for the f32/f64 products, the time of the one
+   PyTorch call that computes the same function (a
    ``torch.sparse_bsr_tensor`` product, a yardstick the port never calls;
    the profiler names its kernel);
 4. the slice through the public entry points, on a block-sparse 2-mode
@@ -205,8 +209,12 @@ FEAST_LINEAR = dict(linearSolver="minres", linearIter=2500, linear_tol=1e-3,
                     errorOnNonConvergence=False, escalateIter=0)
 F_LANES = 2 * (FEAST["nc"] // 2) * FEAST["m0"]  # real lanes of one pass
 # B3 at the slice shape: the main path's lane counts ((j)'s m0 = 12, the
-# 48 of (k)'s FEAST windows, the 6 of (k)'s polish) among them
-LANES = (1, 2, 4, 6, 8, 12, 16, 32, 48, F_LANES)
+# 48 of (k)'s FEAST windows, the 6 of (k)'s polish) among them, and the
+# 96 and 128 lanes of FEAST with m0 12 and 16 at nc 8
+LANES = (1, 2, 4, 6, 8, 12, 16, 32, 48, F_LANES, 96, 128)
+# B3's route by lane count (csrc/bsr_spmm.cu: the FP64 tensor cores from
+# 17 lanes on, f32 widened to f64 there)
+MMA_FROM = 17
 # run (g): bench.py's FEAST window task (bench_feast) and its oracle
 FEAST_BENCH = dict(n=2048, eMin=1000.25, eMax=1004.75, m0=10, nc=8,
                    eConv=1e-6, maxit=8, oracle=1e-4)
@@ -354,7 +362,7 @@ SLICING_EX = dict(n=100, interval=(50.25, 80.25))
 # beside this run's
 ROW_RANGES = 4
 RECORDED_MS = {("bsr_spmv f32", 1): 0.4680, ("bsr_spmm f32", 2): 0.4328,
-               ("bsr_spmm f32", 64): 1.1764}
+               ("bsr_spmm f32", 64): 0.7769}
 # run (n): the sharded levels against the unsharded run's (the same
 # arithmetic with one rank: all-reduces and all-gathers of one rank copy)
 SHARDED_RTOL = 1e-10
@@ -440,6 +448,27 @@ def recording_calls():
 def count_calls(calls, kernel, lanes=None, dtype=None):
     return sum(1 for k, m, dt in calls if k == kernel
                and lanes in (None, m) and dtype in (None, dt))
+
+
+def units(name, m):
+    """The units a kernel runs m lanes on (B3: csrc/bsr_spmm.cu's route)."""
+    if "split" in name:
+        return "bf16 tensor cores"
+    return ("FP64 tensor cores" if name.startswith("bsr_spmm") and m >= MMA_FROM
+            else "CUDA cores")
+
+
+def b3_seconds(calls, results):
+    """The seconds the recorded B3 f32/f64 calls take at phase 3's times of
+    their lane counts, and the (dtype, lanes) that phase 3 did not time."""
+    total, missing = 0.0, set()
+    for k, m, dt in calls:
+        key = (f"bsr_spmm {'f32' if dt == torch.float32 else 'f64'}", m)
+        if k == "bsr_spmm" and key in results:
+            total += results[key]["ms"] / 1e3
+        elif k == "bsr_spmm":
+            missing.add(key)
+    return total, missing
 
 
 def filter_rates(lam, a, b, degree, e_min, e_max, m0s=(8, 12, 16)):
@@ -1231,9 +1260,10 @@ def main():
                  lambda: bsr.bsr_matmat_split(hi, lo, idx, Xm32),
                  lambda: bsr.bsr_matmat_split_plain(hi, lo, idx, Xm32),
                  exactX[:m], split_tol(nbpr, B), gb32, "split", None)):
-            results[(name, m)] = compare(f"{name} m={m} at {shape}", kern,
-                                         plain, ref, tol, gb,
-                                         *bound_of(kind, m), lib)
+            results[(name, m)] = compare(f"{name} m={m} at {shape} "
+                                         f"({units(name, m)})", kern, plain,
+                                         ref, tol, gb, *bound_of(kind, m),
+                                         lib)
         split_checks(f"bsr_spmm_split m={m}",
                      bsr.bsr_matmat_split(hi, lo, idx, Xm32), exactX[:m],
                      bsr.bsr_matmat(op32.dataT, idx, Xm32), refX[:m],
@@ -1247,7 +1277,7 @@ def main():
                               device=dev)
         i5 = torch.as_tensor(r.randint(0, nr, (nr, nb)), dtype=torch.int32,
                              device=dev)
-        V64 = torch.as_tensor(r.standard_normal((65, nr * Bs)), device=dev)
+        V64 = torch.as_tensor(r.standard_normal((129, nr * Bs)), device=dev)
         d32, V32 = d64.float(), V64.float()
         v64, v32 = V64[0].contiguous(), V32[0].contiguous()
         h5 = d32.to(torch.bfloat16)
@@ -1267,7 +1297,8 @@ def main():
         # (key, result, lanes, the signature it must have)
         sigs = [("B2", y2, 1, 0.0), ("f32", bsr.bsr_matvec(d32, i5, v32), 1,
                                      1.0)]
-        for m in (1, 3, 9, 17, 31, 33, 65):   # across the tiles and chunks
+        # across the tiles and the chunks of 32 (split) and 64 (B3)
+        for m in (1, 3, 9, 16, 17, 31, 33, 47, 49, 65, 129):
             W64, W32 = V64[:m].contiguous(), V32[:m].contiguous()
             Ys = bsr.bsr_matmat_split(h5, l5, i5, W32)
             cases += [
@@ -1296,8 +1327,10 @@ def main():
     # every row at the slice shape, for PERF.md's kernel table
     for key, r in results.items():
         name, m = key if isinstance(key, tuple) else (key, 1)
-        print(f"[row] {name} m={m}: kernel {r['ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+        print(f"[row] {name} m={m} ({units(name, m)}): kernel "
+              f"{r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{r['bound_ms'] / r['ms']:.0%} of it), plain "
               f"{r['plain_ms']:.4f} ms, library "
               + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
                  else "none") + f" [{r['library']}]", flush=True)
@@ -1443,6 +1476,7 @@ def main():
 
     torch.cuda.reset_peak_memory_stats()
     totals = dict.fromkeys(bsr.launches, 0)
+    b3_shapes = collections.Counter()   # (dtype, lanes) of B3 in (f), (k)
     walls = {}
     refs = {}           # the unsharded runs that (n) repeats
     # inexact Lanczos, one vector: B1 / B2 for the solves and extends, B3
@@ -1555,6 +1589,8 @@ def main():
     outer = status["outerIter"] + 1
     passes = report["matmats"]
     b3_ms = results[("bsr_spmm f32", F_LANES)]["ms"]
+    b3_s, _ = b3_seconds(calls, results)
+    b3_shapes.update((dt, m) for k, m, dt in calls if k == "bsr_spmm")
     lanes = collections.Counter(m for k, m, _ in calls if k == "bsr_spmm")
     print(f"[slice {tag}] converged {status['isConverged']} after {outer} "
           f"outer iterations (residual {status.get('residual', 0):.2e}); "
@@ -1563,8 +1599,9 @@ def main():
           f"passes of {F_LANES} lanes; B3 launches {counts['bsr_spmm']} "
           f"by lanes {dict(sorted(lanes.items()))}; "
           f"wall {wall:.2f} s, {wall / passes * 1e3:.4f} ms/pass; B3 "
-          f"{b3_ms:.4f} ms at {F_LANES} lanes (phase 3), B3 share of wall "
-          f"{passes * b3_ms / 1e3 / wall:.3f}; phases: "
+          f"{b3_ms:.4f} ms at {F_LANES} lanes ({units('bsr_spmm', F_LANES)}"
+          f", phase 3), B3 {b3_s:.2f} s of the wall at phase 3's times "
+          f"(share {b3_s / wall:.3f}); phases: "
           + ", ".join(f"{p} {t['seconds']:.2f} s ({t['calls']})"
                       for p, t in status["timers"].items()), flush=True)
     require(len(ev) == m0 and len(Y) == m0, f"{tag}: the subspace shrank "
@@ -1720,6 +1757,14 @@ def main():
           f"applies; B3 calls by lanes "
           f"{dict(collections.Counter(m for k, m, _ in calls if k == k3))}"
           f"; wall {wall:.2f} s", flush=True)
+    b3_s, missing = b3_seconds(calls, results)
+    b3_shapes.update((dt, m) for k, m, dt in calls if k == k3)
+    print(f"[slice {tag}] B3 {b3_s:.2f} s of the wall {wall:.2f} s at "
+          f"phase 3's times (share {b3_s / wall:.3f}; "
+          f"{results[('bsr_spmm f64', 48)]['ms']:.4f} ms at 48 f64 lanes, "
+          f"{units('bsr_spmm', 48)})"
+          + (f"; not timed in phase 3: {sorted(missing)}" if missing else ""),
+          flush=True)
     require(st["found_total"] == len(want), f"{tag}: found "
             f"{st['found_total']} pairs for {len(want)} levels: {ev}")
     require(isinstance(st["dropped_spurious"], int), f"{tag}: no "
@@ -2126,20 +2171,34 @@ def main():
 
     def entry(name, source, replaces, key):
         r = results[key]
+        kname, m = key if isinstance(key, tuple) else (key, 1)
         return dict(name=name, route="cuda", source=src + source,
                     replaces=replaces, launches=totals[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
-                    library=r["library"])
+                    library=r["library"], units=units(kname, m),
+                    share=r["bound_ms"] / r["ms"])
+
+    def b3_entry(kind, m, run):
+        """B3 at the lane count of run (f) or (k), with its launches
+        there."""
+        dt = torch.float32 if kind == "f32" else torch.float64
+        return dict(entry("bsr_spmm", "bsr_spmm.cu", b3,
+                          (f"bsr_spmm {kind}", m)),
+                    name=f"bsr_spmm {kind} m={m}",
+                    launches=b3_shapes[(dt, m)], run=run)
 
     line = {"kernels": [
         entry("bsr_spmv", "bsr_spmv.cu",
               "eigensolvers_tpu/ops/sparse.py:440", "bsr_spmv f32"),
         entry("bsr_spmv_split", "bsr_spmm_split.cu",
               "eigensolvers_tpu/ops/sparse.py:479", "bsr_spmv_split"),
-        # B3 at the main path's lane count (the block of two)
+        # B3 at the main path's lane count (the block of two), and at the
+        # 64 f32 lanes of (f) and the 48 f64 lanes of (k)
         entry("bsr_spmm", "bsr_spmm.cu", b3, ("bsr_spmm f32", NBLOCK)),
+        b3_entry("f32", F_LANES, "(f)"),
+        b3_entry("f64", 48, "(k)"),
         entry("bsr_spmm_split", "bsr_spmm_split.cu", b3,
               ("bsr_spmm_split", NBLOCK)),
     ]}

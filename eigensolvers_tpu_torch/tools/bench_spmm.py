@@ -3,26 +3,29 @@ against each other on a CUDA card, in one process, at the slice shape of
 ``chip_smoke.py`` ((2048, 9, 128, 128) blocks, n = 262,144).
 
     python3 -m eigensolvers_tpu_torch.tools.bench_spmm [--parent DIR]
-        [--variant NAME=FILE ...] [--lanes 1,2,4,8,16,32] [--dtypes f32,f64]
+        [--variant NAME=FILE ...] [--lanes 32,48,64,96,128] [--dtypes f32,f64]
         [--reps 30] [--ptxas] [--out FILE]
 
 The versions are ``change`` (the package's own source), ``parent`` (the
 same file under another checkout's root ``DIR``, for example a ``git
 archive`` of the parent commit unpacked under ``build/``), and each
 ``--variant``: another source file of the same kernel, for example an
-edited copy of ``csrc/bsr_spmm.cu`` with another tile or ring depth.  All
-are built at once, one nvcc each.  Each version is first held against the plain product
-``bsr_matmat_plain`` (relative error 1e-5 in f32, 1e-12 in f64); then, for
-each type and m, all versions are timed in turns, forward and back
-(A B .. B A): median of ``--reps`` CUDA-event times per version and turn,
-the lower of its two medians reported.  B1 (``bsr_spmv``), the
-single-vector kernel, is timed in the same turns at m = 1.
+edited copy of ``csrc/bsr_spmm.cu`` with another tile, slab or
+crossover.  All are built at once, one nvcc each.  Each version is first
+held against the plain product ``bsr_matmat_plain`` (relative error 1e-5
+in f32, 1e-12 in f64; a version that misses is not timed at that m, and
+the run fails at the end); then, for each type and m (by default the
+lane stacks of FEAST and spectrum slicing, 32 to 128), all versions are
+timed in turns, forward and back (A B .. B A): median of ``--reps``
+CUDA-event times per version and turn, the lower of its two medians
+reported.  B1 (``bsr_spmv``), the single-vector kernel, is timed in the
+same turns at m = 1.
 
 Prints the card's name and power limit from ``nvidia-smi``, one line per
-type and m (each version's time and share of the bound of
-:mod:`.yardstick`, which ``chip_smoke.py`` reads too), and ``--ptxas``'s
-register and spill report of each version.  ``--out`` writes the rows as
-JSON.
+type and m (each version's time, share of the bound of :mod:`.yardstick`,
+which ``chip_smoke.py`` reads too, and relative error), and ``--ptxas``'s
+register and spill report of each version's kernels.  ``--out`` writes
+the rows as JSON.
 """
 
 from __future__ import annotations
@@ -124,7 +127,7 @@ def main(argv=None):
     ap.add_argument("--variant", action="append", default=[],
                     metavar="NAME=FILE", help="another source file of the "
                     "kernel, timed as NAME")
-    ap.add_argument("--lanes", default="1,2,4,8,16,32")
+    ap.add_argument("--lanes", default="32,48,64,96,128")
     ap.add_argument("--dtypes", default="f32,f64")
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--ptxas", action="store_true",
@@ -164,7 +167,7 @@ def main(argv=None):
 
     H_out, h_in = slice_factors()
     lanes = [int(m) for m in args.lanes.split(",")]
-    rows = []
+    rows, failed = [], []
     for kind in args.dtypes.split(","):
         op = product.kron_sum_bsr(H_out, h_in, BANDWIDTH, DTYPES[kind], dev)
         dataT, idx = op.dataT, op.idx
@@ -178,13 +181,16 @@ def main(argv=None):
             ref = bsr.bsr_matmat_plain(dataT, idx, X)
             fns = {n: (lambda lib=lib: apply(lib, dataT, idx, X))
                    for n, lib in libs.items()}
-            for name, fn in fns.items():
+            errs = {}
+            for name, fn in list(fns.items()):
                 y = fn()
-                err = float((y.double() - ref.double()).abs().max()
-                            / ref.double().abs().max())
-                if not err <= TOL[kind]:
-                    raise SystemExit(f"bench_spmm: {name} {kind} m={m} rel "
-                                     f"err {err:.3e} > {TOL[kind]:.0e}")
+                errs[name] = err = float((y.double() - ref.double()).abs()
+                                         .max() / ref.double().abs().max())
+                if not err <= TOL[kind]:      # not timed; the run fails
+                    failed.append(f"{name} {kind} m={m} rel err {err:.3e} > "
+                                  f"{TOL[kind]:.0e}")
+                    print(f"[{kind} m={m}] {failed[-1]}", flush=True)
+                    del fns[name]
             del ref, y
             if m == 1:
                 fns["B1 bsr_spmv"] = lambda: bsr.bsr_matvec(dataT, idx, X[0])
@@ -195,7 +201,7 @@ def main(argv=None):
             bnd = bound_ms(dataT, idx, m, kind)
             row = dict(card=card, dtype=kind, m=m, bound_ms=bnd,
                        ms={n: min(t) for n, t in times.items()},
-                       turns=times)
+                       turns=times, rel_err=errs)
             if args.clocks:
                 row["clocks"] = {n: clocks(fn) for n, fn in fns.items()}
                 print(f"[{kind} m={m}] median SM MHz, W under load: " + "; ".join(
@@ -204,12 +210,14 @@ def main(argv=None):
             rows.append(row)
             print(f"[{kind} m={m}] bound {bnd:.4f} ms; " + "; ".join(
                 f"{n} {min(t):.4f} ms ({bnd / min(t):.0%}; "
-                f"{t[0]:.4f}/{t[1]:.4f})" for n, t in times.items()),
-                flush=True)
+                f"{t[0]:.4f}/{t[1]:.4f}; rel err {errs.get(n, 0):.1e})"
+                for n, t in times.items()), flush=True)
         del op, dataT, idx, Xall
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(rows, indent=1))
+    if failed:
+        raise SystemExit("bench_spmm: " + "; ".join(failed))
 
 
 if __name__ == "__main__":

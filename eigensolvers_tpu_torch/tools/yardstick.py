@@ -16,10 +16,12 @@ from ..models import product
 M_OUT, B_IN, BANDWIDTH = 2048, 128, 4
 OMEGA_OUT, LAM, OMEGA_IN, X_RANGE = 1.0, 1e-3, 1.3, (-7.0, 7.0)
 # The card's rates for the bound (NVIDIA's H100 SXM data sheet, dense, at
-# the 700 W limit): HBM bytes/s and peak flop/s by type; f32 and f64 on
-# the CUDA cores, bf16 on the tensor cores.
+# the 700 W limit): HBM bytes/s and the fastest unit's peak flop/s by type
+# (the least time the card could take): f32 on the CUDA cores, f64 on the
+# FP64 tensor cores (67 TFLOP/s; its CUDA cores give 34), bf16 on the
+# tensor cores.
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "f64": 34e12, "bf16": 989e12}
+PEAK_FLOPS = {"f32": 67e12, "f64": 67e12, "bf16": 989e12}
 
 
 def slice_factors():

@@ -99,11 +99,15 @@ def test_bsr_spmv_split_matches_plain_and_f64(dev, nrb, nbpr, B):
     assert abs(1 - _signature(y32, exact, y64)) <= SIG_TOL
 
 
-# Lane counts of B3 (bsr_spmm): one CTA of each tile (1, 2, 4, 8, 16, 32
-# lanes), partial tiles (3, 9, 17, 31) and m crossing the chunk of 32 (33,
-# 65, the last a chunk of one lane).  The tensor-core split kernel takes 8,
-# 16 or 32 lanes per CTA and runs chunks of 32: 33 crosses one.
-LANES = [1, 2, 3, 4, 8, 9, 16, 17, 31, 32, 33, 65]
+# Lane counts of B3 (bsr_spmm): one CTA of each tile up to 32 lanes (1, 2,
+# 4, 8, 16, 32), partial tiles (3, 9, 17, 31); above 32 the 48- and 64-lane
+# tiles (the FP64 tensor cores in f64, the 8-row FMA tiles in f32) at and
+# around their edges (33, 47, 48, 49, 63, 64, 65) and the chunks of 64
+# (96, 128, and 129, whose last chunk holds one lane).  The tensor-core
+# split kernel takes 8, 16 or 32 lanes per CTA and runs chunks of 32: 33
+# crosses one.
+LANES = [1, 2, 3, 4, 8, 9, 16, 17, 31, 32, 33, 47, 48, 49, 63, 64, 65, 96,
+         128, 129]
 SPLIT_LANES = [1, 2, 3, 4, 8, 9, 17, 33]
 
 
@@ -129,27 +133,42 @@ def test_bsr_spmm_matches_plain(dev, nrb, nbpr, B, m, dtype, tol):
     assert _relerr(Y, bsr.bsr_matmat_plain(dataT, idx, X)) <= tol
 
 
+@pytest.mark.parametrize("m", [32, 64])
 @pytest.mark.parametrize("nrb,nbpr,B", SHAPES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
-def test_bsr_spmm_edge_lanes_match_bsr_spmv(dev, nrb, nbpr, B, dtype, tol):
-    """Rows 0 and m - 1 of a 32-lane product (the first and last lane of
-    one tile of 32) against B1 on those lanes: two summation orders, the
-    bound of the B3 test above."""
+def test_bsr_spmm_edge_lanes_match_bsr_spmv(dev, nrb, nbpr, B, m, dtype,
+                                            tol):
+    """Rows 0 and m - 1 of a 32- and a 64-lane product (the first and last
+    lane of one tile of 32, and of the 64-lane tile) against B1 on those
+    lanes: two summation orders, the bound of the B3 test above."""
     dataT, idx, _ = _case(nrb, nbpr, B, dtype, dev, seed=5)
-    X = _lanes(nrb, B, 32, dtype, dev, seed=6)
+    X = _lanes(nrb, B, m, dtype, dev, seed=6)
     Y = bsr.bsr_matmat(dataT, idx, X)
-    for k in (0, 31):
+    for k in (0, m - 1):
         y = bsr.bsr_matvec(dataT, idx, X[k].contiguous())
         torch.cuda.synchronize()
         assert _relerr(Y[k], y) <= tol
 
 
-@pytest.mark.parametrize("m", [1, 9, 33])
+@pytest.mark.parametrize("m", [8, 32, 48, 64, 129])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_bsr_spmm_is_deterministic(dev, m, dtype):
+    """Two launches on the same inputs give the same Y bit for bit: each
+    sum runs in a fixed order, with no atomics and no split over j."""
+    dataT, idx, _ = _case(7, 5, 100, dtype, dev, seed=8)
+    X = _lanes(7, 100, m, dtype, dev, seed=9)
+    Y1 = bsr.bsr_matmat(dataT, idx, X)
+    Y2 = bsr.bsr_matmat(dataT, idx, X)
+    torch.cuda.synchronize()
+    assert torch.equal(Y1, Y2)
+
+
+@pytest.mark.parametrize("m", [1, 9, 33, 48, 64, 129])
 @pytest.mark.parametrize("nrb,nbpr,B,offset", [
     (4, 2, 7, 0),        # odd B: element copies, a partial chunk of rows j
     (3, 3, 50, 0),       # B % 4 == 2: 8-byte copies in f32
-    (3, 2, 100, 1),      # blocks not 16-byte aligned: element copies
+    (3, 2, 100, 1),      # blocks and X not 16-byte aligned: element copies
     (2, 2, 200, 0),      # B > 128: two CTAs of output rows, one partial
     (3, 2, 1, 0)])       # one-element blocks
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
@@ -157,14 +176,21 @@ def test_bsr_spmm_edge_lanes_match_bsr_spmv(dev, nrb, nbpr, B, dtype, tol):
 def test_bsr_spmm_takes_any_width_and_alignment(dev, nrb, nbpr, B, offset, m,
                                                 dtype, tol):
     """B3's narrower copies, partial slabs and partial tiles against the
-    plain product, with the bound of the B3 test above."""
+    plain product, with the bound of the B3 test above; ``offset`` places
+    both the blocks and the lane stack that many elements into their
+    buffers."""
     dataT, idx, _ = _case(nrb, nbpr, B, dtype, dev, seed=B)
-    buf = torch.zeros(dataT.numel() + offset, dtype=dtype, device=dev)
-    buf[offset:] = dataT.reshape(-1)
-    placed = buf[offset:].view(dataT.shape)
-    assert (placed.data_ptr() % 16 == 0) == (offset == 0)
     X = _lanes(nrb, B, m, dtype, dev, seed=m)
-    Y = bsr.bsr_matmat(placed, idx, X)
+
+    def placed(t):
+        buf = torch.zeros(t.numel() + offset, dtype=dtype, device=dev)
+        buf[offset:] = t.reshape(-1)
+        return buf[offset:].view(t.shape)
+
+    dataT_o, X_o = placed(dataT), placed(X)
+    assert (dataT_o.data_ptr() % 16 == 0) == (offset == 0)
+    assert (X_o.data_ptr() % 16 == 0) == (offset == 0)
+    Y = bsr.bsr_matmat(dataT_o, idx, X_o)
     torch.cuda.synchronize()
     assert _relerr(Y, bsr.bsr_matmat_plain(dataT, idx, X)) <= tol
 
@@ -410,7 +436,7 @@ def test_ttns_lanczos_on_the_card(dev):
 # x (ncb = nrb block columns) must give EXACTLY the rows [r0*B, r1*B) of
 # the square launch (each output row is computed the same way), and match
 # the plain rectangular version as the square launch does.
-@pytest.mark.parametrize("m", [1, 2, 16, 33])
+@pytest.mark.parametrize("m", [1, 2, 16, 33, 48, 64, 129])
 @pytest.mark.parametrize("nrb,nbpr,B", [(8, 3, 32), (6, 2, 128), (5, 3, 100)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])

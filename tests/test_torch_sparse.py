@@ -239,9 +239,10 @@ def test_same_constructor_arguments_build_the_same_operator(n, B):
                                    H @ x, rtol=0, atol=1e-12)
 
 
-# B3: nrb % 8 != 0, odd nbpr, and m across the kernel's tiles (up to 32
-# lanes) and its chunk of 32
-@pytest.mark.parametrize("m", [1, 3, 9, 16, 32, 33])
+# B3: nrb % 8 != 0, odd nbpr, and m across the kernel's routes (CUDA-core
+# tiles up to 16 lanes, tensor-core tiles of 16 to 64 from 17) and the 48
+# and 64 lanes of the FEAST and slicing stacks
+@pytest.mark.parametrize("m", [1, 3, 9, 16, 32, 33, 48, 64])
 @pytest.mark.parametrize("nrb,nbpr,B", [(5, 3, 32), (9, 5, 64), (3, 1, 64)])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_b3_plain_matches_jax_xla(nrb, nbpr, B, m, dtype):
