@@ -19,14 +19,15 @@ Phases (any failure raises and the script exits non-zero):
    at nc 8), and across the kernels' tiles and lane chunks (``bsr_spmm``
    reads the blocks once for up to 16 lanes on the CUDA cores and for up
    to 64 on the FP64 tensor cores from 17 lanes on, in f64 and f32, and
-   runs more as chunks of 64; ``bsr_spmm_split`` reads them once for up to
-   32 lanes and runs more as chunks of 32; B2 is the tensor-core
-   ``bsr_spmm_split`` launched with m = 1); the bf16x3 kernels against the
-   exact split product, with a signature that tells them from a true-f32
-   product.  Beside each time: its bound (the larger of the bytes over
-   the HBM rate and the flops over the peak rate of their type, f64 at its
-   tensor cores' rate) and, for the f32/f64 products, the time of the one
-   PyTorch call that computes the same function (a
+   runs more as chunks of 64; ``bsr_spmm_split`` runs ``mma.sync`` tiles
+   up to 32 lanes and ``wgmma`` from 33, reads them once for up to 128
+   lanes and runs more as chunks of equal width side by side; B2 is the
+   tensor-core ``bsr_spmm_split`` launched with m = 1); the bf16x3 kernels
+   against the exact split product, with a signature that tells them from
+   a true-f32 product.  Beside each time: its bound (the larger of the
+   bytes over the HBM rate and the flops over the peak rate of their type,
+   f64 at its tensor cores' rate) and, for the f32/f64 products, the time
+   of the one PyTorch call that computes the same function (a
    ``torch.sparse_bsr_tensor`` product, a yardstick the port never calls;
    the profiler names its kernel);
 4. the slice through the public entry points, on a block-sparse 2-mode
@@ -49,6 +50,12 @@ Phases (any failure raises and the script exits non-zero):
      loop: every MINRES pass one B3 apply of all 2 nk m0 real lanes; every
      exact level in the window found, with its f64 residual; then the
      share of a pass the card is busy, from ``torch.profiler``;
+   - (t) the same FEAST run at "high": every MINRES pass one
+     ``bsr_spmm_split`` launch of the 64 real lanes (the bf16x3 tensor-core
+     kernel), one f64 B3 apply of the m0 vectors per outer iteration; the
+     window's levels within "high"'s tolerance and (f)'s residual gate,
+     compared with (f) (passes, iterations, levels), and one pass under
+     ``torch.profiler``;
    - (g) bench.py's FEAST window task (n = 2048, dense, f32, cuBLAS) with
      the bench's own 1e-4 oracle;
    - (h) the CH3CN 6-mode cut (``ch3cn_operator(N=14, nModesCut=6)``,
@@ -181,7 +188,8 @@ try:
     # the slice's operator (n = 262,144; nbpr = 9), the card's rates, the
     # timing and the bound, shared with tools/bench_spmm.py
     from eigensolvers_tpu_torch.tools.yardstick import (
-        B_IN, BANDWIDTH, M_OUT, PEAK_FLOPS, X_RANGE, bound, slice_factors,
+        B_IN, BANDWIDTH, M_OUT, PEAK_FLOPS, SIGNATURE_TOL, SPLIT_TOL,
+        SPLIT_TOL_LONG, X_RANGE, bound, signature, slice_factors, split_tol,
         time_ms)
 except ImportError as e:
     raise SystemExit(f"chip_smoke: the eigensolvers_tpu_torch package is "
@@ -213,8 +221,11 @@ F_LANES = 2 * (FEAST["nc"] // 2) * FEAST["m0"]  # real lanes of one pass
 # 96 and 128 lanes of FEAST with m0 12 and 16 at nc 8
 LANES = (1, 2, 4, 6, 8, 12, 16, 32, 48, F_LANES, 96, 128)
 # B3's route by lane count (csrc/bsr_spmm.cu: the FP64 tensor cores from
-# 17 lanes on, f32 widened to f64 there)
+# 17 lanes on, f32 widened to f64 there), and the split kernel's
+# (csrc/bsr_spmm_split.cu: wgmma from 33 lanes on at the slice's shape,
+# mma.sync below)
 MMA_FROM = 17
+SPLIT_WG_FROM = 33
 # run (g): bench.py's FEAST window task (bench_feast) and its oracle
 FEAST_BENCH = dict(n=2048, eMin=1000.25, eMax=1004.75, m0=10, nc=8,
                    eConv=1e-6, maxit=8, oracle=1e-4)
@@ -396,8 +407,9 @@ HEADLINE_TOL = 1e-2                            # bench.py's bound on the card
 # largest of m lanes (B3).
 EV_RTOL = {"highest": 1e-5, "high": 2e-4}
 RES_TOL = 1e-6
-KERNEL_TOL = {"f64": 1e-12, "f32": 1e-5, "split": 2e-6, "split_long": 5e-6,
-              "split_f64": 1e-5, "split_lanes": 2e-5, "signature": 0.1}
+KERNEL_TOL = {"f64": 1e-12, "f32": 1e-5, "split": SPLIT_TOL,
+              "split_long": SPLIT_TOL_LONG, "split_f64": 1e-5,
+              "split_lanes": 2e-5, "signature": SIGNATURE_TOL}
 
 
 def require(cond, msg):
@@ -410,25 +422,13 @@ def relerr(y, ref):
                  / ref.double().abs().max())
 
 
-def split_tol(nbpr, B):
-    """The split kernels' bound against the exact split product."""
-    return KERNEL_TOL["split" if nbpr * B <= 1152 else "split_long"]
-
-
-def signature(y, exact, y64):
-    """t = <y - exact, d> / <d, d> with d = y64 - exact, the split's own
-    error: the share of it that y carries, ~0 for a bf16x3 product (its
-    roundoff does not align with d) and ~1 for a true-f32 product."""
-    d = y64.double() - exact.double()
-    return float(((y.double() - exact.double()) * d).sum() / (d * d).sum())
-
-
 @contextlib.contextmanager
 def recording_calls():
     """Record (kernel, lanes, dtype) of every B1 / B3 f32-f64 product call
-    while the block is open, by wrapping the wrappers in ``ops.sparse``."""
+    and every bf16x3 lane-stack call while the block is open, by wrapping
+    the wrappers in ``ops.sparse``."""
     calls = []
-    b1, b3 = bsr.bsr_matvec, bsr.bsr_matmat
+    b1, b3, b3s = bsr.bsr_matvec, bsr.bsr_matmat, bsr.bsr_matmat_split
 
     def rec_b1(dataT, idx, xp):
         calls.append(("bsr_spmv", 1, xp.dtype))
@@ -438,11 +438,16 @@ def recording_calls():
         calls.append(("bsr_spmm", Xp.shape[0], Xp.dtype))
         return b3(dataT, idx, Xp)
 
-    bsr.bsr_matvec, bsr.bsr_matmat = rec_b1, rec_b3
+    def rec_b3s(hiT, loT, idx, Xp):
+        calls.append(("bsr_spmm_split", Xp.shape[0], Xp.dtype))
+        return b3s(hiT, loT, idx, Xp)
+
+    bsr.bsr_matvec, bsr.bsr_matmat, bsr.bsr_matmat_split = (rec_b1, rec_b3,
+                                                            rec_b3s)
     try:
         yield calls
     finally:
-        bsr.bsr_matvec, bsr.bsr_matmat = b1, b3
+        bsr.bsr_matvec, bsr.bsr_matmat, bsr.bsr_matmat_split = b1, b3, b3s
 
 
 def count_calls(calls, kernel, lanes=None, dtype=None):
@@ -453,7 +458,8 @@ def count_calls(calls, kernel, lanes=None, dtype=None):
 def units(name, m):
     """The units a kernel runs m lanes on (B3: csrc/bsr_spmm.cu's route)."""
     if "split" in name:
-        return "bf16 tensor cores"
+        return ("bf16 tensor cores, "
+                + ("wgmma" if m >= SPLIT_WG_FROM else "mma.sync"))
     return ("FP64 tensor cores" if name.startswith("bsr_spmm") and m >= MMA_FROM
             else "CUDA cores")
 
@@ -1297,7 +1303,7 @@ def main():
         # (key, result, lanes, the signature it must have)
         sigs = [("B2", y2, 1, 0.0), ("f32", bsr.bsr_matvec(d32, i5, v32), 1,
                                      1.0)]
-        # across the tiles and the chunks of 32 (split) and 64 (B3)
+        # across the tiles and the chunks of 64 (B3 and split)
         for m in (1, 3, 9, 16, 17, 31, 33, 47, 49, 65, 129):
             W64, W32 = V64[:m].contiguous(), V32[:m].contiguous()
             Ys = bsr.bsr_matmat_split(h5, l5, i5, W32)
@@ -1419,10 +1425,12 @@ def main():
                 f"{max(rels):.2e}")
         require(max(ress) <= RES_TOL, f"{tag}: residual {max(ress):.2e}")
 
-    def window_states(tag, ev, Y, want, dtype):
+    def window_states(tag, ev, Y, want, dtype, prec="highest"):
         """Each exact level of a window against its nearest Ritz pair (all
         distinct): relative error and f64 residual ||Hv - lv|| / ||H||,
-        held to the slice's gates."""
+        held to the slice's gates at ``prec``'s eigenvalue tolerance
+        (below "highest", whether "highest"'s holds too is printed).
+        Returns the picked Ritz values."""
         ev = np.asarray(ev)
         require(len(ev) == len(Y) and np.all(np.isfinite(ev)),
                 f"{tag}: bad eigenvalues {ev}")
@@ -1440,16 +1448,21 @@ def main():
             rels.append(abs(ev[k] - exact) / abs(exact))
             ress.append(float(torch.linalg.vector_norm(r)
                               / torch.linalg.vector_norm(v)) / h_norm)
+        also = ("" if prec == "highest" else
+                f"; \"highest\"'s {EV_RTOL['highest']:.0e} "
+                + ("holds" if max(rels) <= EV_RTOL["highest"]
+                   else "does not hold"))
         print(f"[slice {tag}] window [{e_min:.6f}, {e_max:.6f}] holds levels "
               f"{lo}..{hi}; Ritz {', '.join(f'{ev[k]:.8f}' for k in picks)} "
               f"exact {', '.join(f'{e:.8f}' for e in want)}; rel err "
               f"{', '.join(f'{e:.2e}' for e in rels)} (tol "
-              f"{EV_RTOL['highest']:.0e}); ||Hv-lv||/||H|| "
+              f"{EV_RTOL[prec]:.0e}{also}); ||Hv-lv||/||H|| "
               f"{', '.join(f'{e:.2e}' for e in ress)} (tol {RES_TOL:.0e})",
               flush=True)
-        require(max(rels) <= EV_RTOL["highest"], f"{tag}: eigenvalue rel "
-                f"err {max(rels):.2e}")
+        require(max(rels) <= EV_RTOL[prec], f"{tag}: eigenvalue rel err "
+                f"{max(rels):.2e}")
         require(max(ress) <= RES_TOL, f"{tag}: residual {max(ress):.2e}")
+        return ev[picks]
 
     def check_counts(tag, counts, expected):
         """Every BSR kernel's launches in the run equal the applies the
@@ -1606,7 +1619,8 @@ def main():
                       for p, t in status["timers"].items()), flush=True)
     require(len(ev) == m0 and len(Y) == m0, f"{tag}: the subspace shrank "
             f"to {len(ev)}")
-    window_states(tag, ev, Y, want, torch.float64)
+    f_levels = window_states(tag, ev, Y, want, torch.float64)
+    f_run = dict(passes=passes, iterations=report["iterations"], wall=wall)
     check_counts(tag, counts, {"bsr_spmm": passes + outer})
     require(len(calls) == counts["bsr_spmm"] and lanes[F_LANES] == passes
             and lanes[m0] == outer, f"{tag}: B3 lane counts {lanes}, "
@@ -1621,6 +1635,63 @@ def main():
                          dtype=torch.float32, device=dev).repeat(nk, 1)
     prof = profile_passes(lambda: gmres_splitc_batch(
         op32, Bf, np.repeat(zs, m0), rtol=0.0, maxiter=100, escalate=0,
+        precond="jacobi"))
+    print(f"[slice {tag}] one pass of {F_LANES} lanes under torch.profiler: "
+          + json.dumps(prof), flush=True)
+
+    # (t): FEAST at "high" on (f)'s window, with (f)'s nc, m0, solve options
+    # and guesses, on op_high (op32's blocks split into bf16 hi/lo).  Every
+    # MINRES pass is one bsr_spmm_split launch of all 2 nk m0 real lanes;
+    # each outer iteration adds one f64 B3 apply of the m0 carried vectors
+    # (the subspace H, on the f32 blocks).  Gated at "high"'s eigenvalue
+    # tolerance and (f)'s f64 residual.
+    report = {}
+    tag = "(t) FEAST high"
+    with recording_calls() as calls:
+        (ev, Y, status), wall, counts, unconv = run(
+            feastDiagonalization, op_high,
+            vectors(guess_block(m0, FEAST["npackets"]), report,
+                    FEAST_LINEAR),
+            FEAST["nc"], "legendre", e_min, e_max, FEAST["eConv"],
+            FEAST["maxit"], writeOut=False)
+    outer = status["outerIter"] + 1
+    passes = report["matmats"]
+    split_ms = results[("bsr_spmm_split", F_LANES)]["ms"]
+    split_s = passes * split_ms / 1e3
+    print(f"[slice {tag}] converged {status['isConverged']} after {outer} "
+          f"outer iterations (residual {status.get('residual', 0):.2e}); "
+          f"{report['solves']} lane solves, {report['iterations']} MINRES "
+          f"iterations ({unconv} warnings of unconverged lanes); {passes} "
+          f"passes of {F_LANES} lanes; launches {counts}; wall {wall:.2f} s, "
+          f"{wall / passes * 1e3:.4f} ms/pass; bsr_spmm_split "
+          f"{split_ms:.4f} ms at {F_LANES} lanes (phase 3), {split_s:.2f} s "
+          f"of the wall at that time (share {split_s / wall:.3f}); phases: "
+          + ", ".join(f"{p} {t['seconds']:.2f} s ({t['calls']})"
+                      for p, t in status["timers"].items()), flush=True)
+    require(len(ev) == m0 and len(Y) == m0, f"{tag}: the subspace shrank "
+            f"to {len(ev)}")
+    t_levels = window_states(tag, ev, Y, want, torch.float64, "high")
+    check_counts(tag, counts, {"bsr_spmm_split": passes, "bsr_spmm": outer})
+    want_calls = collections.Counter({
+        ("bsr_spmm_split", F_LANES, torch.float32): passes,
+        ("bsr_spmm", m0, torch.float64): outer})
+    require(collections.Counter(calls) == want_calls, f"{tag}: calls "
+            f"{collections.Counter(calls)}, expected {want_calls}")
+    split_launches = counts["bsr_spmm_split"]
+    print(f"[slice {tag}] against (f) \"highest\": passes {passes} / "
+          f"{f_run['passes']}, MINRES iterations {report['iterations']} / "
+          f"{f_run['iterations']}, wall {wall:.2f} / {f_run['wall']:.2f} s, "
+          f"ms/pass {wall / passes * 1e3:.4f} / "
+          f"{f_run['wall'] / f_run['passes'] * 1e3:.4f}; levels "
+          f"{', '.join(f'{e:.8f}' for e in t_levels)} / "
+          f"{', '.join(f'{e:.8f}' for e in f_levels)}, largest gap "
+          f"{np.max(np.abs(t_levels - f_levels) / np.abs(want)):.2e} "
+          f"relative", flush=True)
+    walls[tag] = wall
+    for k, v in counts.items():
+        totals[k] += v
+    prof = profile_passes(lambda: gmres_splitc_batch(
+        op_high, Bf, np.repeat(zs, m0), rtol=0.0, maxiter=100, escalate=0,
         precond="jacobi"))
     print(f"[slice {tag}] one pass of {F_LANES} lanes under torch.profiler: "
           + json.dumps(prof), flush=True)
@@ -2168,6 +2239,8 @@ def main():
     # -- 5. results ---------------------------------------------------------
     src = "eigensolvers_tpu_torch/csrc/"
     b3 = "eigensolvers_tpu/ops/sparse.py:294 (_bsr_matmat_xla, XLA)"
+    b3_high = ("eigensolvers_tpu/ops/sparse.py:295 (_bsr_matmat_xla at "
+               "HIGH, XLA, via _bsr_matvec_best_split's vmap rule :525)")
 
     def entry(name, source, replaces, key):
         r = results[key]
@@ -2199,8 +2272,13 @@ def main():
         entry("bsr_spmm", "bsr_spmm.cu", b3, ("bsr_spmm f32", NBLOCK)),
         b3_entry("f32", F_LANES, "(f)"),
         b3_entry("f64", 48, "(k)"),
-        entry("bsr_spmm_split", "bsr_spmm_split.cu", b3,
+        entry("bsr_spmm_split", "bsr_spmm_split.cu", b3_high,
               ("bsr_spmm_split", NBLOCK)),
+        # the split form at the 64 lanes of (t), with its launches there
+        dict(entry("bsr_spmm_split", "bsr_spmm_split.cu", b3_high,
+                   ("bsr_spmm_split", F_LANES)),
+             name=f"bsr_spmm_split m={F_LANES}", launches=split_launches,
+             run="(t)"),
     ]}
     print(json.dumps(line))
     print(smi)

@@ -106,12 +106,19 @@ def bsr_spmm_library() -> ctypes.CDLL:
     return load_bsr_spmm()
 
 
+def load_bsr_spmm_split(src=None) -> ctypes.CDLL:
+    """Build and load ``csrc/bsr_spmm_split.cu``, or another version of it
+    (``src``): for timing versions side by side."""
+    return _load("bsr_spmm_split", {"bsr_spmm_split_f32": [_P, *_MANY]},
+                 src)
+
+
 @functools.cache
 def bsr_spmm_split_library() -> ctypes.CDLL:
     """The bf16x3 block-ELL product on the tensor cores
     (``csrc/bsr_spmm_split.cu``: B3 at "high", and B2 with one vector),
     built on first call."""
-    return _load("bsr_spmm_split", {"bsr_spmm_split_f32": [_P, *_MANY]})
+    return load_bsr_spmm_split()
 
 
 #: Every kernel library, for building them all at once.

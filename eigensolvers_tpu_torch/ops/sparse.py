@@ -64,11 +64,10 @@ launches = {"bsr_spmv": 0, "bsr_spmv_split": 0, "bsr_spmm": 0,
             "bsr_spmm_split": 0}
 
 _MAX_BLOCK = 1024   # one thread per block row: the CUDA block-size limit
-# B3 runs more than 64 vectors as chunks of 64, the grid's x axis counting
-# block rows times chunks; its split form runs chunks of 32 on the z axis.
+# B3 and its split form run more than 64 vectors as chunks of (at most) 64,
+# the grid's x axis counting block rows times chunks.
 _LANE_CHUNK = 64
 _MAX_GRID_X = 2 ** 31 - 1
-_MAX_SPLIT_LANES = 32 * 65535
 
 
 def reset_launch_counts() -> None:
@@ -394,13 +393,12 @@ def bsr_matmat_split_plain(hiT, loT, idx, Xp, acc=torch.float32):
 # ----------------------------------------------------------------------------
 # Kernel wrappers: CPU -> plain version, CUDA -> hand-written kernel or raise
 # ----------------------------------------------------------------------------
-def _check_launch(blocks, idx, xp, lanes=False, ncb=None, split=False):
+def _check_launch(blocks, idx, xp, lanes=False, ncb=None):
     """Validate what the kernels take: x of shape (ncb*B,), or (m, ncb*B)
     for ``lanes``, with ncb = nrb (square) unless the caller names the
     number of block columns (a row block; its block-column ids were
     checked below ncb when its operator was built, not here), and m lanes
-    whose grid fits (B3: nrb * ceil(m / 64) CTAs on the x axis; the
-    ``split`` kernel: ceil(m / 32) chunks on the z axis).  Returns (nrb,
+    whose grid fits (nrb * ceil(m / 64) CTAs on the x axis).  Returns (nrb,
     ncb, nbpr, B)."""
     nrb, nbpr, B, B2 = blocks[0].shape
     if B != B2 or not 1 <= B <= _MAX_BLOCK:
@@ -415,8 +413,7 @@ def _check_launch(blocks, idx, xp, lanes=False, ncb=None, split=False):
     if ncb < 1:
         raise ValueError(f"ncb={ncb} block columns")
     if lanes:
-        max_lanes = (_MAX_SPLIT_LANES if split else
-                     _MAX_GRID_X // nrb * _LANE_CHUNK)
+        max_lanes = _MAX_GRID_X // nrb * _LANE_CHUNK
         if xp.ndim != 2 or xp.shape[1] != ncb * B \
                 or not 1 <= xp.shape[0] <= max_lanes:
             raise ValueError(f"X must be (m, {ncb * B}) with 1 <= m <= "
@@ -466,7 +463,7 @@ def _launch_split(name, hiT, loT, idx, Xp, lanes, ncb=None):
     """Launch the bf16x3 tensor-core kernel on the padded x (ncb*B,) or
     lane stack (m, ncb*B) and count the launch under ``name``."""
     nrb, ncb, nbpr, B = _check_launch((hiT, loT), idx, Xp, lanes=lanes,
-                                      ncb=ncb, split=True)
+                                      ncb=ncb)
     if hiT.dtype != torch.bfloat16 or loT.dtype != torch.bfloat16 \
             or Xp.dtype != torch.float32:
         raise TypeError(f"{name} takes bf16 hi/lo blocks and f32 x, got "

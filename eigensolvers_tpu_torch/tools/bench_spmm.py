@@ -1,25 +1,31 @@
-"""Time versions of the multi-vector kernel B3 (``csrc/bsr_spmm.cu``)
-against each other on a CUDA card, in one process, at the slice shape of
-``chip_smoke.py`` ((2048, 9, 128, 128) blocks, n = 262,144).
+"""Time versions of the multi-vector kernels against each other on a CUDA
+card, in one process, at the slice shape of ``chip_smoke.py`` ((2048, 9,
+128, 128) blocks, n = 262,144): B3 (``csrc/bsr_spmm.cu``, the default) or
+its bf16x3 form (``--kernel split``, ``csrc/bsr_spmm_split.cu``).
 
-    python3 -m eigensolvers_tpu_torch.tools.bench_spmm [--parent DIR]
-        [--variant NAME=FILE ...] [--lanes 32,48,64,96,128] [--dtypes f32,f64]
-        [--reps 30] [--ptxas] [--out FILE]
+    python3 -m eigensolvers_tpu_torch.tools.bench_spmm [--kernel b3|split]
+        [--parent DIR] [--variant NAME=FILE ...] [--lanes 32,48,64,96,128]
+        [--dtypes f32,f64] [--reps 30] [--ptxas] [--out FILE]
 
 The versions are ``change`` (the package's own source), ``parent`` (the
 same file under another checkout's root ``DIR``, for example a ``git
 archive`` of the parent commit unpacked under ``build/``), and each
 ``--variant``: another source file of the same kernel, for example an
-edited copy of ``csrc/bsr_spmm.cu`` with another tile, slab or
-crossover.  All are built at once, one nvcc each.  Each version is first
-held against the plain product ``bsr_matmat_plain`` (relative error 1e-5
-in f32, 1e-12 in f64; a version that misses is not timed at that m, and
-the run fails at the end); then, for each type and m (by default the
-lane stacks of FEAST and spectrum slicing, 32 to 128), all versions are
-timed in turns, forward and back (A B .. B A): median of ``--reps``
-CUDA-event times per version and turn, the lower of its two medians
-reported.  B1 (``bsr_spmv``), the single-vector kernel, is timed in the
-same turns at m = 1.
+edited copy with another tile, slab or crossover.  All are built at once,
+one nvcc each.  Each version is first held to its oracle at each m (a
+version that misses is not timed at that m, and the run fails at the end):
+B3 to the plain product ``bsr_matmat_plain`` (relative error 1e-5 in f32,
+1e-12 in f64); the split kernel, as ``chip_smoke.py`` holds it, to the
+exact split product (the same bf16 products summed in f64: 2e-6 of max |y|
+at the slice) and by its signature (|t| <= 0.1, the share of the split's
+own error it carries; a true-f32 product reads 1).  Then, for each type and
+m (B3: by default the lane stacks of FEAST and spectrum slicing, 32 to 128;
+split: 1, 2, 8, 16, 32, 48, 64, 96, 128, f32 only), all versions are timed
+in turns, forward and back (A B .. B A): median of ``--reps`` CUDA-event
+times per version and turn, the lower of its two medians reported.  In the
+same turns: B1 (``bsr_spmv``), the single-vector kernel, at m = 1 beside
+B3; the package's B3 at "highest" on the same f32 blocks beside the split
+kernel (the exact form a user trades "high" against).
 
 Prints the card's name and power limit from ``nvidia-smi``, one line per
 type and m (each version's time, share of the bound of :mod:`.yardstick`,
@@ -44,10 +50,13 @@ import torch
 from ..models import product
 from ..ops import kernels
 from ..ops import sparse as bsr
-from .yardstick import BANDWIDTH, PEAK_FLOPS, bound, slice_factors, time_ms
+from .yardstick import (BANDWIDTH, PEAK_FLOPS, SIGNATURE_TOL, bound,
+                        signature, slice_factors, split_tol, time_ms)
 
 TOL = {"f32": 1e-5, "f64": 1e-12}
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
+SOURCES = {"b3": "bsr_spmm.cu", "split": "bsr_spmm_split.cu"}
+LANES = {"b3": "32,48,64,96,128", "split": "1,2,8,16,32,48,64,96,128"}
 
 
 def load(src):
@@ -63,6 +72,24 @@ def load(src):
                                      "bsr_spmm_f64": old}, src)
     lib.ncb = False
     return lib
+
+
+def load_split(src):
+    """A version of the split kernel's library (every version since the
+    row-block form takes ``ncb``)."""
+    return kernels.load_bsr_spmm_split(src)
+
+
+def apply_split(lib, hi, lo, idx, X):
+    """One square launch of a split kernel version on the lane stack X."""
+    nrb, nbpr, B, _ = hi.shape
+    Y = torch.empty_like(X)
+    code = lib.bsr_spmm_split_f32(
+        hi.data_ptr(), lo.data_ptr(), idx.data_ptr(), X.data_ptr(),
+        Y.data_ptr(), nrb, nrb, nbpr, B, X.shape[0],
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(lib, code, "bsr_spmm_split")
+    return Y
 
 
 def apply(lib, dataT, idx, X):
@@ -99,15 +126,68 @@ def clocks(fn, seconds=1.0):
 
 
 def bound_ms(dataT, idx, m, kind):
-    """The bound of one product of m lanes, as ``chip_smoke.py`` has it."""
+    """The bound of one product of m lanes, as ``chip_smoke.py`` has it:
+    the split form moves the f32 bytes (hi + lo) and does 6 bf16 flops per
+    element and lane."""
     size = dataT.element_size()
+    split = kind == "split"
     return bound(dataT.numel() * size, idx.numel() * 4, m,
                  dataT.shape[0] * dataT.shape[2], size,
-                 2 * dataT.numel() * m, PEAK_FLOPS[kind])[0]
+                 (6 if split else 2) * dataT.numel() * m,
+                 PEAK_FLOPS["bf16" if split else kind])[0]
+
+
+def b3_cases(libs, kind, dataT, idx, X):
+    """B3's versions on X, each held to the plain product: (errors,
+    failures, {name: fn} of the versions that pass)."""
+    ref = bsr.bsr_matmat_plain(dataT, idx, X)
+    errs, failed, fns = {}, [], {}
+    for name, lib in libs.items():
+        fn = (lambda lib=lib: apply(lib, dataT, idx, X))
+        errs[name] = err = float((fn().double() - ref.double()).abs().max()
+                                 / ref.double().abs().max())
+        if err <= TOL[kind]:
+            fns[name] = fn
+        else:
+            failed.append(f"{name} rel err {err:.3e} > {TOL[kind]:.0e}")
+    if X.shape[0] == 1:
+        fns["B1 bsr_spmv"] = lambda: bsr.bsr_matvec(dataT, idx, X[0])
+    return errs, failed, fns
+
+
+def split_cases(libs, op, X):
+    """The split kernel's versions on X, each held to the exact split
+    product and by its signature beside the f64 product of the f32 data,
+    and compared bit for bit with the first version ("change"); the
+    package's B3 on the f32 blocks ("highest") is timed beside them."""
+    hi, lo, idx = op.dataT_hi, op.dataT_lo, op.idx
+    nbpr, B = hi.shape[1], hi.shape[2]
+    exact = bsr.bsr_matmat_split_plain(hi, lo, idx, X, acc=torch.float64)
+    y64 = bsr.bsr_matmat_plain(op.dataT.double(), idx, X.double())
+    tol = split_tol(nbpr, B)
+    errs, failed, fns, first = {}, [], {}, None
+    for name, lib in libs.items():
+        fn = (lambda lib=lib: apply_split(lib, hi, lo, idx, X))
+        y = fn()
+        if first is None:
+            first = y
+        else:
+            print(f"[split m={X.shape[0]}] {name} bit for bit as change: "
+                  f"{bool(torch.equal(y, first))}", flush=True)
+        errs[name] = err = float((y.double() - exact).abs().max()
+                                 / exact.abs().max())
+        t = signature(y, exact, y64)
+        if err <= tol and abs(t) <= SIGNATURE_TOL:
+            fns[name] = fn
+        else:
+            failed.append(f"{name} rel err {err:.3e} (tol {tol:.0e}), "
+                          f"signature {t:+.4f} (tol {SIGNATURE_TOL})")
+    fns["B3 highest"] = lambda: bsr.bsr_matmat(op.dataT, idx, X)
+    return errs, failed, fns
 
 
 def ptxas_report(src):
-    """ptxas's register and spill lines for one source, built as the
+    """ptxas's register, spill and warning lines for one source, built as the
     package builds it (``ops/kernels.py``) with ``-Xptxas -v``."""
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as d:
@@ -117,18 +197,23 @@ def ptxas_report(src):
             capture_output=True, text=True, check=True)
     return [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
             if "registers" in line or "spill" in line
-            or "Compiling entry" in line]
+            or "Compiling entry" in line or "arning" in line]
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="root of another checkout whose "
-                    "eigensolvers_tpu_torch/csrc/bsr_spmm.cu is timed too")
+    ap.add_argument("--kernel", choices=list(SOURCES), default="b3",
+                    help="B3 (csrc/bsr_spmm.cu) or its bf16x3 form "
+                    "(csrc/bsr_spmm_split.cu)")
+    ap.add_argument("--parent", help="root of another checkout whose copy "
+                    "of the kernel's source is timed too")
     ap.add_argument("--variant", action="append", default=[],
                     metavar="NAME=FILE", help="another source file of the "
                     "kernel, timed as NAME")
-    ap.add_argument("--lanes", default="32,48,64,96,128")
-    ap.add_argument("--dtypes", default="f32,f64")
+    ap.add_argument("--lanes", help="lane counts (default: "
+                    + "; ".join(f"{k} {v}" for k, v in LANES.items()) + ")")
+    ap.add_argument("--dtypes", default="f32,f64",
+                    help="B3's types (the split kernel takes f32 only)")
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--ptxas", action="store_true",
                     help="print each version's registers and spills")
@@ -150,15 +235,18 @@ def main(argv=None):
     print(card, flush=True)
 
     # (name, source file) of every version
-    versions = {"change": kernels.CSRC / "bsr_spmm.cu"}
+    split = args.kernel == "split"
+    source = SOURCES[args.kernel]
+    versions = {"change": kernels.CSRC / source}
     if args.parent:
         versions["parent"] = (Path(args.parent) / "eigensolvers_tpu_torch"
-                              / "csrc" / "bsr_spmm.cu")
+                              / "csrc" / source)
     for v in args.variant:
         name, _, src = v.partition("=")
         versions[name] = Path(src)
     with ThreadPoolExecutor(len(versions)) as pool:
-        libs = dict(zip(versions, pool.map(load, versions.values())))
+        libs = dict(zip(versions, pool.map(load_split if split else load,
+                                           versions.values())))
         reports = pool.map(ptxas_report, versions.values()) \
             if args.ptxas else ()
         for name, lines in zip(versions, reports):
@@ -166,41 +254,32 @@ def main(argv=None):
                 print(f"[ptxas {name}] {line}")
 
     H_out, h_in = slice_factors()
-    lanes = [int(m) for m in args.lanes.split(",")]
+    lanes = [int(m) for m in (args.lanes or LANES[args.kernel]).split(",")]
     rows, failed = [], []
-    for kind in args.dtypes.split(","):
-        op = product.kron_sum_bsr(H_out, h_in, BANDWIDTH, DTYPES[kind], dev)
-        dataT, idx = op.dataT, op.idx
+    for kind in ("split",) if split else args.dtypes.split(","):
+        op = product.kron_sum_bsr(H_out, h_in, BANDWIDTH,
+                                  DTYPES["f32" if split else kind], dev,
+                                  precision="high" if split else "highest")
         if args.diag:
-            idx = torch.arange(idx.shape[0], dtype=torch.int32, device=dev)[
-                :, None].expand(idx.shape).contiguous()
+            op.idx = torch.arange(op.idx.shape[0], dtype=torch.int32,
+                                  device=dev)[:, None].expand(
+                                      op.idx.shape).contiguous()
         Xall = torch.as_tensor(np.random.RandomState(0).standard_normal(
-            (max(lanes), op.n_padded)), dtype=DTYPES[kind], device=dev)
+            (max(lanes), op.n_padded)), dtype=op.dtype, device=dev)
         for m in lanes:
             X = Xall[:m].contiguous()
-            ref = bsr.bsr_matmat_plain(dataT, idx, X)
-            fns = {n: (lambda lib=lib: apply(lib, dataT, idx, X))
-                   for n, lib in libs.items()}
-            errs = {}
-            for name, fn in list(fns.items()):
-                y = fn()
-                errs[name] = err = float((y.double() - ref.double()).abs()
-                                         .max() / ref.double().abs().max())
-                if not err <= TOL[kind]:      # not timed; the run fails
-                    failed.append(f"{name} {kind} m={m} rel err {err:.3e} > "
-                                  f"{TOL[kind]:.0e}")
-                    print(f"[{kind} m={m}] {failed[-1]}", flush=True)
-                    del fns[name]
-            del ref, y
-            if m == 1:
-                fns["B1 bsr_spmv"] = lambda: bsr.bsr_matvec(dataT, idx, X[0])
+            errs, bad, fns = (split_cases(libs, op, X) if split else
+                              b3_cases(libs, kind, op.dataT, op.idx, X))
+            for line in bad:
+                failed.append(f"{kind} m={m} {line}")
+                print(f"[{kind} m={m}] {line}", flush=True)
             order = list(fns) + list(fns)[::-1]
             times = {n: [] for n in fns}
             for name in order:
                 times[name].append(time_ms(fns[name], args.reps))
-            bnd = bound_ms(dataT, idx, m, kind)
-            row = dict(card=card, dtype=kind, m=m, bound_ms=bnd,
-                       ms={n: min(t) for n, t in times.items()},
+            bnd = bound_ms(op.dataT, op.idx, m, kind)
+            row = dict(card=card, kernel=args.kernel, dtype=kind, m=m,
+                       bound_ms=bnd, ms={n: min(t) for n, t in times.items()},
                        turns=times, rel_err=errs)
             if args.clocks:
                 row["clocks"] = {n: clocks(fn) for n, fn in fns.items()}
@@ -212,7 +291,7 @@ def main(argv=None):
                 f"{n} {min(t):.4f} ms ({bnd / min(t):.0%}; "
                 f"{t[0]:.4f}/{t[1]:.4f}; rel err {errs.get(n, 0):.1e})"
                 for n, t in times.items()), flush=True)
-        del op, dataT, idx, Xall
+        del op, Xall
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(rows, indent=1))

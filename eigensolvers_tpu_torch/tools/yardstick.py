@@ -1,7 +1,8 @@
 """The slice operator of ``chip_smoke.py`` and the yardstick its kernel
 times are read against, shared by ``chip_smoke.py`` and
 :mod:`eigensolvers_tpu_torch.tools.bench_spmm`: the operator's parameters,
-the card's rates, CUDA-event timing and the bound of one product."""
+the card's rates, CUDA-event timing, the bound of one product, and the
+bf16x3 kernels' bounds against the exact split product."""
 
 from __future__ import annotations
 
@@ -60,3 +61,26 @@ def bound(block_bytes, idx_bytes, m, npad, itemsize, flops, peak,
     t_ops = flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+# The bf16x3 ("high") kernels against the exact split product (the same
+# bf16 products summed in f64): their f32 summation order alone, which
+# grows with the N = nbpr * B terms of a row, bounded by 2e-6 of max |y| up
+# to N = 1152 (the slice's; a true-f32 product reads 3.5e-6 and more there)
+# and by 5e-6 beyond (at N = 2048 the roundoff itself reaches 3.5e-6); and
+# their signature (see ``signature``) within 0.1 of 0, where a true-f32
+# product reads 1 +- 0.1.
+SPLIT_TOL, SPLIT_TOL_LONG, SIGNATURE_TOL = 2e-6, 5e-6, 0.1
+
+
+def split_tol(nbpr, B):
+    """The split kernels' bound against the exact split product."""
+    return SPLIT_TOL if nbpr * B <= 1152 else SPLIT_TOL_LONG
+
+
+def signature(y, exact, y64):
+    """t = <y - exact, d> / <d, d> with d = y64 - exact, the split's own
+    error: the share of it that y carries, ~0 for a bf16x3 product (its
+    roundoff does not align with d) and ~1 for a true-f32 product."""
+    d = y64.double() - exact.double()
+    return float(((y.double() - exact.double()) * d).sum() / (d * d).sum())

@@ -104,11 +104,13 @@ def test_bsr_spmv_split_matches_plain_and_f64(dev, nrb, nbpr, B):
 # tiles (the FP64 tensor cores in f64, the 8-row FMA tiles in f32) at and
 # around their edges (33, 47, 48, 49, 63, 64, 65) and the chunks of 64
 # (96, 128, and 129, whose last chunk holds one lane).  The tensor-core
-# split kernel takes 8, 16 or 32 lanes per CTA and runs chunks of 32: 33
-# crosses one.
+# split kernel takes 8, 16, 32, 48 or 64 lanes per CTA and runs chunks of
+# equal width beyond 64 (SPLIT_EDGE_LANES: the edges of its tiles and
+# chunks, 65 = 2 x 33 and 129 = 3 x 43 among them).
 LANES = [1, 2, 3, 4, 8, 9, 16, 17, 31, 32, 33, 47, 48, 49, 63, 64, 65, 96,
          128, 129]
 SPLIT_LANES = [1, 2, 3, 4, 8, 9, 17, 33]
+SPLIT_EDGE_LANES = [33, 47, 63, 64, 65, 95, 127, 128, 129, 200]
 
 
 def _lanes(nrb, B, m, dtype, dev, seed):
@@ -226,6 +228,64 @@ def test_bsr_spmm_split_matches_plain_and_f64(dev, nrb, nbpr, B, m):
     assert abs(1 - _signature(Y32, exact, y64)) <= SIG_TOL
 
 
+@pytest.mark.parametrize("m", SPLIT_EDGE_LANES)
+@pytest.mark.parametrize("nrb,nbpr,B", [(6, 3, 128), (5, 3, 40),
+                                        (3, 2, 200)])
+def test_split_kernel_at_the_tile_and_chunk_edges(dev, nrb, nbpr, B, m):
+    """The split kernel's wide tiles (48, 64 lanes: one read of hi/lo) and
+    its chunks beyond 64 lanes, at and around their edges, for B = 128, an
+    odd B (40: a partial K-step, warps past B, the mma.sync tiles at every
+    m) and B = 200 (two CTAs of output rows, the second partial, and a
+    partial K-step on the wgmma route): one launch, the exact split
+    product's bound, the signature, and every lane against B2 on that
+    lane."""
+    dataT, idx, _ = _case(nrb, nbpr, B, torch.float32, dev, seed=2)
+    hi = dataT.to(torch.bfloat16)
+    lo = (dataT - hi.float()).to(torch.bfloat16)
+    X = _lanes(nrb, B, m, torch.float32, dev, seed=m)
+    bsr.reset_launch_counts()
+    Y = bsr.bsr_matmat_split(hi, lo, idx, X)
+    torch.cuda.synchronize()
+    assert bsr.launches["bsr_spmm_split"] == 1
+    exact = bsr.bsr_matmat_split_plain(hi, lo, idx, X, acc=torch.float64)
+    tol = _split_tol(nbpr, B)
+    assert _relerr(Y, exact) <= tol
+    y64 = bsr.bsr_matmat_plain(dataT.double(), idx, X.double())
+    assert abs(_signature(Y, exact, y64)) <= SIG_TOL
+    assert abs(1 - _signature(bsr.bsr_matmat(dataT, idx, X), exact, y64)) \
+        <= SIG_TOL
+    ones = torch.stack([bsr.bsr_matvec_split(hi, lo, idx, x.contiguous())
+                        for x in X])
+    assert _relerr(Y, ones) <= tol
+
+
+@pytest.mark.parametrize("m", [1, 33, 64, 65, 129])
+@pytest.mark.parametrize("nrb,nbpr,B", [(6, 3, 128), (5, 3, 40),
+                                        (3, 2, 200)])
+def test_split_kernel_leaves_lanes_past_m_and_rows_past_B_unwritten(
+        dev, nrb, nbpr, B, m):
+    """A launch into a NaN-filled buffer one lane longer than Y: the m
+    lanes equal the wrapper's result bit for bit, and the lane past m
+    stays NaN, so no CTA writes a lane past m or a row past B (the last
+    block row's rows past B would land there)."""
+    from eigensolvers_tpu_torch.ops import kernels
+    dataT, idx, _ = _case(nrb, nbpr, B, torch.float32, dev, seed=3)
+    hi = dataT.to(torch.bfloat16)
+    lo = (dataT - hi.float()).to(torch.bfloat16)
+    X = _lanes(nrb, B, m, torch.float32, dev, seed=m)
+    buf = torch.full(((m + 1) * nrb * B,), float("nan"), device=dev)
+    lib = kernels.bsr_spmm_split_library()
+    code = lib.bsr_spmm_split_f32(
+        hi.data_ptr(), lo.data_ptr(), idx.data_ptr(), X.data_ptr(),
+        buf.data_ptr(), nrb, nrb, nbpr, B, m,
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(lib, code, "bsr_spmm_split")
+    Y = bsr.bsr_matmat_split(hi, lo, idx, X)
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:m * nrb * B].view(m, nrb * B), Y)
+    assert bool(buf[m * nrb * B:].isnan().all())
+
+
 def _split_case(nrb, nbpr, B, m, dev, offset=0):
     """hi/lo blocks (starting ``offset`` bf16 elements into their buffers)
     and a lane stack; returns (dataT, hi, lo, idx, X)."""
@@ -243,7 +303,7 @@ def _split_case(nrb, nbpr, B, m, dev, offset=0):
             _lanes(nrb, B, m, torch.float32, dev, m))
 
 
-@pytest.mark.parametrize("m", [1, 9])
+@pytest.mark.parametrize("m", [1, 9, 65])
 @pytest.mark.parametrize("nrb,nbpr,B,offset", [
     (4, 2, 7, 0),        # odd B: element copies, one warp
     (3, 3, 50, 0),       # B % 4 == 2: 4-byte copies
@@ -252,8 +312,10 @@ def _split_case(nrb, nbpr, B, m, dev, offset=0):
     (3, 2, 1, 0)])       # one-element blocks
 def test_split_kernel_takes_any_width_and_alignment(dev, nrb, nbpr, B,
                                                     offset, m):
-    """The tensor-core kernel's narrower copies and partial tiles: the same
-    bounds against the exact split product as the slice's shapes."""
+    """The tensor-core kernel's narrower copies and partial tiles (the
+    mma.sync tiles at every m where the wgmma route's 16-byte copies do not
+    apply, their chunks beyond 64 lanes too): the same bounds against the
+    exact split product as the slice's shapes."""
     dataT, hi, lo, idx, X = _split_case(nrb, nbpr, B, m, dev, offset)
     assert (hi.data_ptr() % 16 == 0) == (offset == 0)
     Y = bsr.bsr_matmat_split(hi, lo, idx, X)
@@ -456,7 +518,7 @@ def test_row_block_launches_equal_the_square_rows(dev, nrb, nbpr, B, m,
         assert _relerr(Yr, bsr.bsr_matmat_plain(d, i, X)) <= tol
 
 
-@pytest.mark.parametrize("m", [1, 9, 33])
+@pytest.mark.parametrize("m", [1, 9, 33, 64, 65, 129])
 @pytest.mark.parametrize("nrb,nbpr,B", [(8, 3, 32), (6, 2, 128)])
 def test_split_row_block_launches_equal_the_square_rows(dev, nrb, nbpr, B,
                                                         m):

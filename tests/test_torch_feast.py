@@ -12,6 +12,10 @@ Tolerances (f64 unless stated):
   1e-7 relative (1e-9 inner solves; the loops' trajectories differ only by
   roundoff), and against the exact levels 1e-4 (completeness);
 * the split path against ``splitComplex=False`` (complex GMRES): 1e-6;
+* FEAST at "high" on f32 blocks (bf16x3 lane stacks in the port, plain
+  f32 in the JAX package on the CPU): in-window levels 2e-4 relative
+  against each other and the exact ones (the "high" gate of
+  ``chip_smoke.py``; they read ~2e-9);
 * ``gmres_splitc_batch`` lane by lane against the JAX package's: x to
   1e-10 relative, iterations, convergence flags equal, on a
   well-conditioned problem (~60-140 MINRES iterations per lane, where
@@ -35,6 +39,7 @@ from eigensolvers_tpu import as_operator as jax_as_operator
 from eigensolvers_tpu import feastDiagonalization as jax_feast
 from eigensolvers_tpu.models.synthetic import known_spectrum_matrix
 from eigensolvers_tpu.ops import linear_solvers as jls
+from eigensolvers_tpu.ops import sparse as jax_sparse
 
 import eigensolvers_tpu_torch.solvers.feast as feast_mod
 from eigensolvers_tpu_torch import (BSROperator, TorchVector,
@@ -136,6 +141,56 @@ def test_fused_loop_applies_the_whole_stack_once_per_pass(problem,
     assert st["solverIterations"] == report["iterations"]
     for t in problem["inside"]:
         assert np.min(np.abs(np.asarray(ev) - t)) <= 1e-4
+
+
+def test_fused_loop_at_high_applies_the_split_stack_once_per_pass(
+        problem, monkeypatch):
+    """FEAST at "high" on an f32 block-sparse H (the problem's A, blocks of
+    32) with f32 guesses, beside the JAX package's
+    ``BSROperator(..., precision="high", use_pallas=False)`` on the same
+    numbers: every MINRES pass of the fused loop is ONE bf16x3 apply of all
+    2 nk m0 lanes (``bsr_matmat_split``, the split kernel on the card), and
+    each outer iteration one f64 apply of the m0 carried vectors on the f32
+    blocks.  Both find the same in-window levels, within 2e-4 relative of
+    each other and of the exact ones (the "high" gate of ``chip_smoke.py``).
+    JAX's "high" on the CPU is plain f32 and the port's plain split path is
+    bf16x3, so they are not expected to agree bit for bit; measured (9
+    outer iterations, f32 solves capped at 60 MINRES iterations): the port
+    1.8e-9 and the JAX package 1.8e-9 from the exact levels, 1.7e-9 from
+    each other."""
+    p = problem
+    A32 = p["A"].astype(np.float32)
+    op = BSROperator.from_dense(A32, block_size=32, precision="high",
+                                device=CPU)
+    lanes = []
+    split, b3 = bsr.bsr_matmat_split, bsr.bsr_matmat
+    monkeypatch.setattr(bsr, "bsr_matmat_split", lambda h, l_, i, X: (
+        lanes.append(("split", X.shape[0], X.dtype)) or split(h, l_, i, X)))
+    monkeypatch.setattr(bsr, "bsr_matmat", lambda d, i, X: (
+        lanes.append(("b3", X.shape[0], X.dtype)) or b3(d, i, X)))
+    monkeypatch.setattr(bsr, "bsr_matvec", lambda *a: pytest.fail("SpMV"))
+    report = {}
+    ls = dict(LS, linearIter=60, linear_tol=1e-5, linear_atol=1e-6,
+              report=report)
+    jv, tv = _guesses(p, ls, np.float32)
+    kw = dict(eConv=1e-8, maxit=12, writeOut=False)
+    evt, uvt, st = feastDiagonalization(op, tv, NC, "legendre", RMIN, RMAX,
+                                        **kw)
+    assert uvt[0].dtype == torch.float64          # the f64 carry
+    nk = NC // 2
+    outer = st["outerIter"] + 1
+    assert lanes.count(("split", 2 * nk * M0, torch.float32)) \
+        == report["matmats"] == len(lanes) - outer
+    assert lanes.count(("b3", M0, torch.float64)) == outer
+    jop = jax_sparse.BSROperator.from_dense(A32, block_size=32,
+                                            precision="high",
+                                            use_pallas=False)
+    evj, _, _ = jax_feast(jop, jv, NC, "legendre", RMIN, RMAX, **kw)
+    gt, gj = _in_window(evt), _in_window(evj)
+    assert len(gt) == len(gj) == len(p["inside"])
+    np.testing.assert_allclose(gt, gj, rtol=2e-4)
+    np.testing.assert_allclose(gt, p["inside"], rtol=2e-4)
+    np.testing.assert_allclose(gj, p["inside"], rtol=2e-4)
 
 
 def test_split_path_matches_complex_gmres(problem):
