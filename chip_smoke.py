@@ -13,7 +13,8 @@ Phases (any failure raises and the script exits non-zero):
    together;
 3. kernels vs plain PyTorch on the card, at the slice shape and at ragged
    small shapes, with errors and CUDA-event timings: the single-vector SpMV
-   (B1 ``bsr_spmv``, B2 ``bsr_spmv_split``) and the multi-vector product
+   (B1 ``bsr_spmv``, the ``bsr_spmm`` kernel launched with one vector; B2
+   ``bsr_spmv_split``) and the multi-vector product
    (B3 ``bsr_spmm``, ``bsr_spmm_split``) for m = 1, 2, 4, 6, 8, 12, 16,
    32, 48, run (f)'s 64 vectors, and 96 and 128 (FEAST with m0 12 and 16
    at nc 8), and across the kernels' tiles and lane chunks (``bsr_spmm``
@@ -29,7 +30,8 @@ Phases (any failure raises and the script exits non-zero):
    f64 at its tensor cores' rate) and, for the f32/f64 products, the time
    of the one PyTorch call that computes the same function (a
    ``torch.sparse_bsr_tensor`` product, a yardstick the port never calls;
-   the profiler names its kernel);
+   the profiler names its kernel); for B1 also the profiler's device time
+   of its kernel, so that the event time splits into it and the launch gap;
 4. the slice through the public entry points, on a block-sparse 2-mode
    vibrational Hamiltonian with n = 262,144 and 1.21 GB of f32 block data
    on the card, each run checked against the exact spectrum and by an f64
@@ -86,12 +88,13 @@ Phases (any failure raises and the script exits non-zero):
      device memory, host reads, and the card's times of one applyOp and
      one tree_als_solve (``tools/tree_device_host.py`` sets them beside
      the CPU's);
-   - (n0) row-block launches on the slice operator: B1, B2, B3 f32 at m =
-     2, 16, 64 and B3 f64 at m = 48 on 4 ranges of 512 block rows with the
-     whole x, each bitwise equal to the matching rows of the square launch
-     and held to its plain rectangular version; one range timed beside
-     its bound; the square B1 and B3 (m = 2, 64) re-timed beside the
-     times PERF.md's kernel table records;
+   - (n0) row-block launches on the slice operator: B1 f32 and f64, B2,
+     B3 f32 at m = 2, 16, 64 and B3 f64 at m = 48 on 4 ranges of 512 block
+     rows with the whole x, each bitwise equal to the matching rows of the
+     square launch and held to its plain rectangular version; one range
+     timed beside its bound, B1's also by the profiler's device time of its
+     kernel; the square B1 (f32, f64) and B3 (m = 2, 64) re-timed beside
+     the times PERF.md's kernel table records;
    - (n) the sharded backend (``eigensolvers_tpu_torch.parallel``) on
      NCCL, one process of world size 1 (the group joined here through a
      file store in a temporary directory): (n1) the single-vector
@@ -189,8 +192,8 @@ try:
     # timing and the bound, shared with tools/bench_spmm.py
     from eigensolvers_tpu_torch.tools.yardstick import (
         B_IN, BANDWIDTH, M_OUT, PEAK_FLOPS, SIGNATURE_TOL, SPLIT_TOL,
-        SPLIT_TOL_LONG, X_RANGE, bound, signature, slice_factors, split_tol,
-        time_ms)
+        SPLIT_TOL_LONG, X_RANGE, bound, device_ms, host_us, signature,
+        slice_factors, sparse_bsr, split_tol, time_ms)
 except ImportError as e:
     raise SystemExit(f"chip_smoke: the eigensolvers_tpu_torch package is "
                      f"not beside this script ({e})")
@@ -372,8 +375,8 @@ SLICING_EX = dict(n=100, interval=(50.25, 80.25))
 # kernel table records (section 6, NVIDIA H100 80GB HBM3, 700.00 W)
 # beside this run's
 ROW_RANGES = 4
-RECORDED_MS = {("bsr_spmv f32", 1): 0.4680, ("bsr_spmm f32", 2): 0.4328,
-               ("bsr_spmm f32", 64): 0.7769}
+RECORDED_MS = {("bsr_spmv f32", 1): 0.4000, ("bsr_spmv f64", 1): 0.7815,
+               ("bsr_spmm f32", 2): 0.4328, ("bsr_spmm f32", 64): 0.7769}
 # run (n): the sharded levels against the unsharded run's (the same
 # arithmetic with one rank: all-reduces and all-gathers of one rank copy)
 SHARDED_RTOL = 1e-10
@@ -415,6 +418,13 @@ KERNEL_TOL = {"f64": 1e-12, "f32": 1e-5, "split": SPLIT_TOL,
 def require(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+NOT_MEASURED = "not measured (the profiler recorded no whole set of kernels)"
+
+
+def ms_or_none(ms):
+    return f"{ms:.4f} ms" if ms is not None else NOT_MEASURED
 
 
 def relerr(y, ref):
@@ -548,10 +558,11 @@ def device_times(fn):
 
 
 def compare(name, kern, plain, ref, tol, gb, bound_ms, bound_by,
-            library=None):
+            library=None, device=False):
     """Hold a kernel against its plain version (or ``ref``) and time both in
     turns (plain, kernel, kernel, plain), then the library call, if any,
-    twice; returns the result dict."""
+    twice, and with ``device`` the kernel's own device time (the profiler's;
+    the event time less it is the launch gap); returns the result dict."""
     yk = kern()
     torch.cuda.synchronize()
     yp = plain() if ref is None else ref
@@ -570,15 +581,21 @@ def compare(name, kern, plain, ref, tol, gb, bound_ms, bound_by,
     if library is not None:
         lib_ms, lib_note = library()
     lib = f"{lib_ms:.4f} ms" if lib_ms is not None else lib_note
+    dev_ms = device_ms(kern) if device else None
+    host = host_us(kern) if device else None
     print(f"[kernel] {name}: rel err {err:.3e} (tol {tol:.0e}); kernel "
           f"{ms_k:.4f} ms ({gb / ms_k * 1e3:.0f} GB/s of block data), plain "
           f"{ms_p:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
           f"{bound_ms / ms_k:.0%} of it), library {lib}; medians of 30 "
-          f"(kernel {ms_k1:.4f}/{ms_k2:.4f}, plain {ms_p1:.4f}/{ms_p2:.4f})",
+          f"(kernel {ms_k1:.4f}/{ms_k2:.4f}, plain {ms_p1:.4f}/{ms_p2:.4f})"
+          + ("; the kernel's device time "
+             + (f"{dev_ms:.4f} ms (profiler), launch gap {ms_k - dev_ms:.4f} "
+                f"ms" if dev_ms is not None else NOT_MEASURED)
+             + f"; host time of one call {host:.1f} us" if device else ""),
           flush=True)
     return dict(max_rel_err=err, max_abs_err=abs_err, ms=ms_k, plain_ms=ms_p,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-                library=lib_note)
+                library=lib_note, device_ms=dev_ms, host_us=host)
 
 
 def wall_ms(fn, reps, dev, warmup=True):
@@ -983,12 +1000,7 @@ def row_library(dataT, idx, X, ncols, ref, tol):
     """The library yardstick of a row block: one ``torch.sparse_bsr_tensor``
     product of the block's rows (the stored blocks, ELL padding included)
     with the whole x, held to ``ref()`` first; (ms or None, note)."""
-    nr, nb, B, _ = dataT.shape
-    crow = torch.arange(0, nr * nb + 1, nb, dtype=torch.int32,
-                        device=dataT.device)
-    vals = dataT.transpose(-1, -2).reshape(nr * nb, B, B).contiguous()
-    A = torch.sparse_bsr_tensor(crow, idx.reshape(-1).contiguous(), vals,
-                                size=(nr * B, ncols), check_invariants=False)
+    A = sparse_bsr(dataT, idx, ncols)
     x = X if X.ndim == 1 else X.T.contiguous()
     try:
         y = A @ x
@@ -1009,9 +1021,10 @@ def row_blocks(op32, op64, op_high, dev):
     """(n0): each kernel launched on ROW_RANGES ranges of block rows with
     the whole x (``ncb`` = nrb) against the rows of its square launch
     (bitwise) and its plain rectangular version; range 0 timed beside its
-    bound (that range's blocks + idx, the whole x, the local y); the square
-    B1 and B3 (m = 2, 64) re-timed.  Launches made here are checks, not
-    main-path runs: the caller zeroes the counters after."""
+    bound (that range's blocks + idx, the whole x, the local y), B1's also
+    by its device time (the profiler's); the square B1 (f32, f64) and B3
+    (m = 2, 64) re-timed, B1 with its device time.  Launches made here are
+    checks, not main-path runs: the caller zeroes the counters after."""
     nrb, nbpr, B, _ = op32.dataT.shape
     npad, per = nrb * B, nrb // ROW_RANGES
     rng = np.random.RandomState(8)
@@ -1022,12 +1035,13 @@ def row_blocks(op32, op64, op_high, dev):
     stol = split_tol(nbpr, B)
 
     def x_of(dtype, m):
-        return (X64 if dtype == "f64" else X32)[:m].contiguous() if m > 1 \
-            else X32[0].contiguous()
+        X = X64 if dtype == "f64" else X32
+        return X[:m].contiguous() if m > 1 else X[0].contiguous()
 
     # (name, m, kind, blocks, x, kernel, plain reference, tolerance)
     cases = []
     for name, m, kind in (("bsr_spmv f32", 1, "f32"),
+                          ("bsr_spmv f64", 1, "f64"),
                           ("bsr_spmv_split", 1, "split"),
                           ("bsr_spmm f32", 2, "f32"),
                           ("bsr_spmm f32", 16, "f32"),
@@ -1042,12 +1056,12 @@ def row_blocks(op32, op64, op_high, dev):
                 *bl, i, x, acc=torch.float64)
             tol = stol
         elif m == 1:
-            blocks = (op32.dataT,)
+            blocks = (op64.dataT if kind == "f64" else op32.dataT,)
             kern = lambda bl, i, x, **kw: bsr.bsr_matvec(  # noqa: E731
                 *bl, i, x, **kw)
             plain = lambda bl, i, x: bsr.bsr_matvec_plain(  # noqa: E731
                 *bl, i, x)
-            tol = KERNEL_TOL["f32"]
+            tol = KERNEL_TOL[kind]
         else:
             blocks = (op64.dataT if kind == "f64" else op32.dataT,)
             kern = lambda bl, i, x, **kw: bsr.bsr_matmat(  # noqa: E731
@@ -1077,6 +1091,10 @@ def row_blocks(op32, op64, op_high, dev):
         bl = tuple(b[:per] for b in blocks)
         ms_k = min(time_ms(lambda: kern(bl, idx[:per], X, ncb=nrb)),
                    time_ms(lambda: kern(bl, idx[:per], X, ncb=nrb)))
+        b1 = name.startswith("bsr_spmv ")
+        dev_ms = device_ms(lambda: kern(bl, idx[:per], X, ncb=nrb)) \
+            if b1 else None
+        host = host_us(lambda: kern(bl, idx[:per], X, ncb=nrb)) if b1 else None
         ms_p = time_ms(lambda: plain(bl, idx[:per], X), reps=5)
         size = 8 if kind == "f64" else 4
         elems = bl[0].numel()
@@ -1090,22 +1108,33 @@ def row_blocks(op32, op64, op_high, dev):
                                       lambda: plain(bl, idx[:per], X), tol)
         rows_out.append(dict(name=name, m=m, ms=ms_k, plain_ms=ms_p,
                              bound_ms=b_ms, bound_by=b_by, err=max(errs),
-                             library_ms=lib_ms, library=lib))
+                             library_ms=lib_ms, library=lib,
+                             device_ms=dev_ms, host_us=host))
         print(f"[n0] {name} m={m}: {ROW_RANGES} row blocks of {per} block "
               f"rows, each bitwise equal to the square launch's rows; rel "
               f"err against the plain rectangular version "
               f"{max(errs):.3e} (tol {tol:.0e}); rows [0, {per}): kernel "
-              f"{ms_k:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{ms_k:.4f} ms"
+              + ((f" (device {dev_ms:.4f} ms, launch gap "
+                  f"{ms_k - dev_ms:.4f} ms" if dev_ms is not None else
+                  f" (device {NOT_MEASURED}") + f"; host time of one call "
+                 f"{host:.1f} us)" if b1 else "")
+              + f", bound {b_ms:.4f} ms ({b_by}; "
               f"{b_ms / ms_k:.0%}), plain {ms_p:.4f} ms, library "
               + (f"{lib_ms:.4f} ms [{lib}]" if lib_ms is not None else lib),
               flush=True)
     for (name, m), rec in RECORDED_MS.items():
-        X = x_of("f32", m)
-        ms = min(time_ms(lambda: (bsr.bsr_matvec if m == 1 else
-                                  bsr.bsr_matmat)(op32.dataT, idx, X))
-                 for _ in range(2))
-        print(f"[n0] square {name} m={m} re-timed: {ms:.4f} ms (PERF.md "
-              f"section 6 records {rec:.4f} ms)", flush=True)
+        kind = name.split()[-1]
+        X = x_of(kind, m)
+        dataT = op64.dataT if kind == "f64" else op32.dataT
+
+        def square():
+            return (bsr.bsr_matvec if m == 1 else bsr.bsr_matmat)(dataT, idx,
+                                                                  X)
+        ms = min(time_ms(square) for _ in range(2))
+        dev = f" (device {ms_or_none(device_ms(square))})" if m == 1 else ""
+        print(f"[n0] square {name} m={m} re-timed: {ms:.4f} ms{dev} "
+              f"(PERF.md section 6 records {rec:.4f} ms)", flush=True)
     return rows_out
 
 
@@ -1201,15 +1230,8 @@ def main():
 
     # The library yardstick: the stored blocks (ELL padding included, the
     # same bytes the kernels read) as a torch.sparse_bsr_tensor, built once.
-    def bsr_tensor(dataT):
-        crow = torch.arange(0, nrb * nbpr + 1, nbpr, dtype=torch.int32,
-                            device=dev)
-        vals = dataT.transpose(-1, -2).reshape(nrb * nbpr, B, B).contiguous()
-        return torch.sparse_bsr_tensor(crow, idx.reshape(-1), vals,
-                                       size=(npad, npad),
-                                       check_invariants=False)
-
-    A32, A64 = bsr_tensor(op32.dataT), bsr_tensor(op64.dataT)
+    A32, A64 = sparse_bsr(op32.dataT, idx, npad), sparse_bsr(op64.dataT, idx,
+                                                            npad)
 
     def library(A, x, ref, tol):
         """Time ``A @ x`` (x (npad,) or (npad, m)) after holding it to
@@ -1242,7 +1264,8 @@ def main():
              lambda: bsr.bsr_matvec_split_plain(hi, lo, idx, x32),
              exactX[0], split_tol(nbpr, B), gb32, "split", None)):
         results[name] = compare(f"{name} at {shape}", kern, plain,
-                                ref, tol, gb, *bound_of(kind, 1), lib)
+                                ref, tol, gb, *bound_of(kind, 1), lib,
+                                device=name.startswith("bsr_spmv "))
     split_checks("bsr_spmv_split", bsr.bsr_matvec_split(hi, lo, idx, x32),
                  exactX[0], bsr.bsr_matvec(op32.dataT, idx, x32), ref32,
                  "split_f64")
@@ -1334,7 +1357,9 @@ def main():
     for key, r in results.items():
         name, m = key if isinstance(key, tuple) else (key, 1)
         print(f"[row] {name} m={m} ({units(name, m)}): kernel "
-              f"{r['ms']:.4f} ms, bound "
+              f"{r['ms']:.4f} ms"
+              + (f" (device {ms_or_none(r['device_ms'])})"
+                 if name.startswith("bsr_spmv ") else "") + ", bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
               f"{r['bound_ms'] / r['ms']:.0%} of it), plain "
               f"{r['plain_ms']:.4f} ms, library "
@@ -2231,7 +2256,10 @@ def main():
           flush=True)
     for r in rect_rows:
         print(f"[row] {r['name']} m={r['m']} rows [0, 512) of 2048 (whole "
-              f"x): kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"x): kernel {r['ms']:.4f} ms"
+              + (f" (device {ms_or_none(r['device_ms'])})"
+                 if r["name"].startswith("bsr_spmv ") else "")
+              + f", bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
               + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
                  else "none") + f" [{r['library']}]", flush=True)
@@ -2251,7 +2279,7 @@ def main():
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     library=r["library"], units=units(kname, m),
-                    share=r["bound_ms"] / r["ms"])
+                    share=r["bound_ms"] / r["ms"], device_ms=r["device_ms"])
 
     def b3_entry(kind, m, run):
         """B3 at the lane count of run (f) or (k), with its launches
@@ -2263,7 +2291,8 @@ def main():
                     launches=b3_shapes[(dt, m)], run=run)
 
     line = {"kernels": [
-        entry("bsr_spmv", "bsr_spmv.cu",
+        # B1: B3's kernel launched with one vector
+        entry("bsr_spmv", "bsr_spmm.cu",
               "eigensolvers_tpu/ops/sparse.py:440", "bsr_spmv f32"),
         entry("bsr_spmv_split", "bsr_spmm_split.cu",
               "eigensolvers_tpu/ops/sparse.py:479", "bsr_spmv_split"),

@@ -1,6 +1,6 @@
 // Block-ELL sparse matrix times a stack of m vectors, for Hopper (sm_90a).
 //
-// Layout (the BSROperator's storage, shared with bsr_spmv.cu):
+// Layout (the BSROperator's storage, shared with bsr_spmm_split.cu):
 //   dataT (nrb, nbpr, B, B)  blocks stored per-block TRANSPOSED:
 //                            dataT[r, t, j, i] = H[r*B + i, idx[r, t]*B + j]
 //   idx   (nrb, nbpr) int32  block-column id of each stored block
@@ -14,8 +14,10 @@
 //
 // bsr_spmm_{f32,f64}  replace eigensolvers_tpu/ops/sparse.py::_bsr_matmat_xla
 //   (XLA gather + einsum, :294; every vmapped BSR matvec reaches it through
-//   the custom_vmap rules at :488-537).  Its "high" (bf16x3) form is
-//   bsr_spmm_split.cu, on the tensor cores.
+//   the custom_vmap rules at :488-537), and with m = 1 the Pallas kernel
+//   _bsr_matvec_pallas (:405, pallas_call :440): the package's single-vector
+//   apply (ops/sparse.py::bsr_matvec) is this kernel's one-lane tile.  Its
+//   "high" (bf16x3) form is bsr_spmm_split.cu, on the tensor cores.
 //
 // What bounds them.  Each dataT element carries 2m flops per itemsize
 // bytes.  Up to m = 16 that is far below the card's balance, so an apply

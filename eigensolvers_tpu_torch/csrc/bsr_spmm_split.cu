@@ -1,7 +1,7 @@
 // Block-ELL sparse matrix times a stack of m vectors at "high" precision
 // (bf16x3), on Hopper's bf16 tensor cores (sm_90a).
 //
-// Layout (the BSROperator's storage, shared with bsr_spmv.cu/bsr_spmm.cu):
+// Layout (the BSROperator's storage, shared with bsr_spmm.cu):
 //   hiT, loT (nrb, nbpr, B, B) bf16  the f32 blocks split into hi = bf16(a)
 //                            and lo = bf16(a - hi), stored per-block
 //                            TRANSPOSED: hiT[r, t, j, i] ~ H[r*B + i, idx[r, t]*B + j]

@@ -81,15 +81,7 @@ def _load(name: str, signatures: dict, src=None) -> ctypes.CDLL:
     return lib
 
 
-_ONE = [_P, _P, _P, _P, _I, _I, _I, _P]        # blocks, idx, x, y, nrb..B
 _MANY = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]  # nrb, ncb, nbpr, B, m
-
-
-@functools.cache
-def bsr_spmv_library() -> ctypes.CDLL:
-    """The single-vector block-ELL SpMV kernels (``csrc/bsr_spmv.cu``, B1),
-    built on first call."""
-    return _load("bsr_spmv", {"bsr_spmv_f32": _ONE, "bsr_spmv_f64": _ONE})
 
 
 def load_bsr_spmm(src=None) -> ctypes.CDLL:
@@ -101,8 +93,8 @@ def load_bsr_spmm(src=None) -> ctypes.CDLL:
 
 @functools.cache
 def bsr_spmm_library() -> ctypes.CDLL:
-    """The multi-vector block-ELL kernels (``csrc/bsr_spmm.cu``, B3 in f32
-    and f64), built on first call."""
+    """The block-ELL kernels in f32 and f64 (``csrc/bsr_spmm.cu``: B3, and
+    B1 with one vector), built on first call."""
     return load_bsr_spmm()
 
 
@@ -122,7 +114,7 @@ def bsr_spmm_split_library() -> ctypes.CDLL:
 
 
 #: Every kernel library, for building them all at once.
-LIBRARIES = (bsr_spmv_library, bsr_spmm_library, bsr_spmm_split_library)
+LIBRARIES = (bsr_spmm_library, bsr_spmm_split_library)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -12,10 +12,11 @@ idx[r, t]*B + j]``), so no apply re-transposes the whole array;
 
 Execution paths, chosen by the device of the tensors alone:
 
-* single vector (:meth:`BSROperator.matvec`) on a CUDA tensor: the
-  ``bsr_spmv`` kernel (``csrc/bsr_spmv.cu``, B1), the port of the JAX
-  package's Pallas kernel ``_bsr_matvec_pallas``, at "highest" or
-  "default" for f32 or f64; at ``precision="high"`` on f32 data B2, the
+* single vector (:meth:`BSROperator.matvec`) on a CUDA tensor: B1
+  (counted as ``bsr_spmv``), the port of the JAX package's Pallas kernel
+  ``_bsr_matvec_pallas``, at "highest" or "default" for f32 or f64: the
+  kernel of B3 (``csrc/bsr_spmm.cu``) launched with one vector; at
+  ``precision="high"`` on f32 data B2, the
   port of ``_bsr_matvec_pallas_split``: the bf16x3 tensor-core kernel
   ``csrc/bsr_spmm_split.cu`` launched with one vector (counted as
   ``bsr_spmv_split``);
@@ -54,8 +55,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernels import (bsr_spmm_library, bsr_spmm_split_library,
-                      bsr_spmv_library, check)
+from .kernels import bsr_spmm_library, bsr_spmm_split_library, check
 from .operators import AbstractOperator, as_tensor, resolve_precision
 
 #: Kernel launches since the last :func:`reset_launch_counts`, by kernel.
@@ -63,7 +63,11 @@ from .operators import AbstractOperator, as_tensor, resolve_precision
 launches = {"bsr_spmv": 0, "bsr_spmv_split": 0, "bsr_spmm": 0,
             "bsr_spmm_split": 0}
 
-_MAX_BLOCK = 1024   # one thread per block row: the CUDA block-size limit
+# The largest block the kernels are checked at (tests/test_torch_cuda.py,
+# chip_smoke.py).  Both kernel files cover B > 128 as CTAs of 128 output
+# rows on the grid's y axis, so no CTA limit sets it; a larger B is taken
+# only once it is tested.
+_MAX_BLOCK = 1024
 # B3 and its split form run more than 64 vectors as chunks of (at most) 64,
 # the grid's x axis counting block rows times chunks.
 _LANE_CHUNK = 64
@@ -431,32 +435,54 @@ def _check_launch(blocks, idx, xp, lanes=False, ncb=None):
     return nrb, ncb, nbpr, B
 
 
+def _launch(fn, device, *args):
+    """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
+    stream (its raw handle), with ``device`` the current device, where a
+    launch goes; returns the launch's CUDA error code.  The raw handle and
+    a check of the current device skip the stream object and the device
+    context that ``torch.cuda.current_stream()`` and a ``torch.cuda.device``
+    block build on every launch: host time that a short row-block launch
+    otherwise waits on."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def _launch_b3(name, dataT, idx, Xp, lanes, ncb=None):
+    """Launch B3's kernel (``csrc/bsr_spmm.cu``) on the padded x (ncb*B,)
+    or lane stack (m, ncb*B) and count the launch under ``name``."""
+    nrb, ncb, nbpr, B = _check_launch((dataT,), idx, Xp, lanes=lanes,
+                                      ncb=ncb)
+    if dataT.dtype not in (torch.float32, torch.float64) \
+            or Xp.dtype != dataT.dtype:
+        raise TypeError(f"{name} takes f32 or f64 data and x of the same "
+                        f"type, got {dataT.dtype} and {Xp.dtype}")
+    lib = bsr_spmm_library()
+    fn = lib.bsr_spmm_f32 if dataT.dtype == torch.float32 else lib.bsr_spmm_f64
+    Y = Xp.new_empty((Xp.shape[0], nrb * B) if lanes else (nrb * B,))
+    code = _launch(fn, Xp.device, dataT.data_ptr(), idx.data_ptr(),
+                   Xp.data_ptr(), Y.data_ptr(), nrb, ncb, nbpr, B,
+                   Xp.shape[0] if lanes else 1)
+    check(lib, code, name)
+    launches[name] += 1
+    return Y
+
+
 def bsr_matvec(dataT, idx, xp, ncb=None):
     """B1: ``y = A x`` for the padded x (ncb*B,) -> (nrb*B,), f32 or f64
-    (port of ``eigensolvers_tpu/ops/sparse.py::_bsr_matvec_pallas``).  The
-    kernel reads x by block-column id and writes y by block row, so a row
-    block launches as the square operator does.  ``ncb``, in every
-    wrapper: the block columns of x, nrb unless a row block's operator
-    (which checked its ids below ncb) names them."""
+    (port of ``eigensolvers_tpu/ops/sparse.py::_bsr_matvec_pallas``): the
+    kernel of :func:`bsr_matmat` with one vector, counted as
+    ``bsr_spmv``.  The kernel reads x by block-column id and writes y by
+    block row, so a row block launches as the square operator does.
+    ``ncb``, in every wrapper: the block columns of x, nrb unless a row
+    block's operator (which checked its ids below ncb) names them."""
     if xp.device.type == "cpu":
         return bsr_matvec_plain(dataT, idx, xp)
     if xp.device.type != "cuda":
         raise ValueError(f"no bsr_spmv kernel for device {xp.device}")
-    nrb, _, nbpr, B = _check_launch((dataT,), idx, xp, ncb=ncb)
-    if dataT.dtype not in (torch.float32, torch.float64) \
-            or xp.dtype != dataT.dtype:
-        raise TypeError(f"bsr_spmv takes f32 or f64 data and x of the same "
-                        f"type, got {dataT.dtype} and {xp.dtype}")
-    lib = bsr_spmv_library()
-    fn = lib.bsr_spmv_f32 if dataT.dtype == torch.float32 else lib.bsr_spmv_f64
-    y = xp.new_empty(nrb * B)
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(dataT.data_ptr(), idx.data_ptr(), xp.data_ptr(),
-                  y.data_ptr(), nrb, nbpr, B, stream)
-    check(lib, code, "bsr_spmv")
-    launches["bsr_spmv"] += 1
-    return y
+    return _launch_b3("bsr_spmv", dataT, idx, xp, lanes=False, ncb=ncb)
 
 
 def _launch_split(name, hiT, loT, idx, Xp, lanes, ncb=None):
@@ -470,12 +496,10 @@ def _launch_split(name, hiT, loT, idx, Xp, lanes, ncb=None):
                         f"{hiT.dtype}, {loT.dtype}, {Xp.dtype}")
     lib = bsr_spmm_split_library()
     Y = Xp.new_empty((Xp.shape[0], nrb * B) if lanes else (nrb * B,))
-    with torch.cuda.device(Xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.bsr_spmm_split_f32(hiT.data_ptr(), loT.data_ptr(),
-                                      idx.data_ptr(), Xp.data_ptr(),
-                                      Y.data_ptr(), nrb, ncb, nbpr, B,
-                                      Xp.shape[0] if lanes else 1, stream)
+    code = _launch(lib.bsr_spmm_split_f32, Xp.device, hiT.data_ptr(),
+                   loT.data_ptr(), idx.data_ptr(), Xp.data_ptr(),
+                   Y.data_ptr(), nrb, ncb, nbpr, B,
+                   Xp.shape[0] if lanes else 1)
     check(lib, code, name)
     launches[name] += 1
     return Y
@@ -501,22 +525,7 @@ def bsr_matmat(dataT, idx, Xp, ncb=None):
         return bsr_matmat_plain(dataT, idx, Xp)
     if Xp.device.type != "cuda":
         raise ValueError(f"no bsr_spmm kernel for device {Xp.device}")
-    nrb, ncb, nbpr, B = _check_launch((dataT,), idx, Xp, lanes=True,
-                                      ncb=ncb)
-    if dataT.dtype not in (torch.float32, torch.float64) \
-            or Xp.dtype != dataT.dtype:
-        raise TypeError(f"bsr_spmm takes f32 or f64 data and X of the same "
-                        f"type, got {dataT.dtype} and {Xp.dtype}")
-    lib = bsr_spmm_library()
-    fn = lib.bsr_spmm_f32 if dataT.dtype == torch.float32 else lib.bsr_spmm_f64
-    Y = Xp.new_empty((Xp.shape[0], nrb * B))
-    with torch.cuda.device(Xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(dataT.data_ptr(), idx.data_ptr(), Xp.data_ptr(),
-                  Y.data_ptr(), nrb, ncb, nbpr, B, Xp.shape[0], stream)
-    check(lib, code, "bsr_spmm")
-    launches["bsr_spmm"] += 1
-    return Y
+    return _launch_b3("bsr_spmm", dataT, idx, Xp, lanes=True, ncb=ncb)
 
 
 def bsr_matmat_split(hiT, loT, idx, Xp, ncb=None):

@@ -1,9 +1,10 @@
-"""Time versions of the multi-vector kernels against each other on a CUDA
+"""Time versions of the block-ELL kernels against each other on a CUDA
 card, in one process, at the slice shape of ``chip_smoke.py`` ((2048, 9,
-128, 128) blocks, n = 262,144): B3 (``csrc/bsr_spmm.cu``, the default) or
-its bf16x3 form (``--kernel split``, ``csrc/bsr_spmm_split.cu``).
+128, 128) blocks, n = 262,144): B3 (``csrc/bsr_spmm.cu``, the default),
+its bf16x3 form (``--kernel split``, ``csrc/bsr_spmm_split.cu``) or the
+single-vector apply B1 (``--kernel b1``: B3's kernel with one vector).
 
-    python3 -m eigensolvers_tpu_torch.tools.bench_spmm [--kernel b3|split]
+    python3 -m eigensolvers_tpu_torch.tools.bench_spmm [--kernel b3|split|b1]
         [--parent DIR] [--variant NAME=FILE ...] [--lanes 32,48,64,96,128]
         [--dtypes f32,f64] [--reps 30] [--ptxas] [--out FILE]
 
@@ -23,9 +24,25 @@ m (B3: by default the lane stacks of FEAST and spectrum slicing, 32 to 128;
 split: 1, 2, 8, 16, 32, 48, 64, 96, 128, f32 only), all versions are timed
 in turns, forward and back (A B .. B A): median of ``--reps`` CUDA-event
 times per version and turn, the lower of its two medians reported.  In the
-same turns: B1 (``bsr_spmv``), the single-vector kernel, at m = 1 beside
-B3; the package's B3 at "highest" on the same f32 blocks beside the split
-kernel (the exact form a user trades "high" against).
+same turns: the package's B3 at "highest" on the same f32 blocks beside the
+split kernel (the exact form a user trades "high" against).
+
+``--kernel b1`` times the single-vector apply's versions, f32 and f64, at
+two shapes: the square launch and a row block (block rows [0, 512) of 2048
+with the whole x: a rank's launch in a 4-way row split).  A version is a
+B3 source launched with one lane, or a source of the separate single-vector
+kernel that the package had before (``bsr_spmv_f32``/``_f64``, for example
+``--parent`` on a checkout that has ``csrc/bsr_spmv.cu``; the parent's
+``bsr_spmm.cu`` where it has none).  Each version is held to
+``bsr_matvec_plain`` (1e-5 in f32, 1e-12 in f64), compared bit for bit with
+"change", and its row block with its own square rows.  In the same turns:
+the package's wrapper (``bsr_matvec``, the change with its host checks),
+the library call (``A @ x``, A a ``torch.sparse_bsr_tensor`` of the same
+blocks), and "read", one ``sum`` over the same blocks: how fast a plain
+streaming read of those bytes runs on the card.  After the turns, each
+one's device time from torch.profiler, so that the event time splits into
+the kernel's own time and the launch gap, and the host time of one call
+(the Python and the launch call, which the gap holds).
 
 Prints the card's name and power limit from ``nvidia-smi``, one line per
 type and m (each version's time, share of the bound of :mod:`.yardstick`,
@@ -51,12 +68,18 @@ from ..models import product
 from ..ops import kernels
 from ..ops import sparse as bsr
 from .yardstick import (BANDWIDTH, PEAK_FLOPS, SIGNATURE_TOL, bound,
-                        signature, slice_factors, split_tol, time_ms)
+                        device_ms, host_us, signature, slice_factors,
+                        sparse_bsr, split_tol, time_ms)
 
 TOL = {"f32": 1e-5, "f64": 1e-12}
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
-SOURCES = {"b3": "bsr_spmm.cu", "split": "bsr_spmm_split.cu"}
+SOURCES = {"b3": "bsr_spmm.cu", "split": "bsr_spmm_split.cu",
+           "b1": "bsr_spmm.cu"}
+# the separate single-vector kernel's file, before B1 went to B3's kernel
+OLD_B1 = "bsr_spmv.cu"
 LANES = {"b3": "32,48,64,96,128", "split": "1,2,8,16,32,48,64,96,128"}
+# B1's row block: the first of 4 ranges of block rows, with the whole x
+ROW_RANGES = 4
 
 
 def load(src):
@@ -84,12 +107,46 @@ def apply_split(lib, hi, lo, idx, X):
     """One square launch of a split kernel version on the lane stack X."""
     nrb, nbpr, B, _ = hi.shape
     Y = torch.empty_like(X)
-    code = lib.bsr_spmm_split_f32(
-        hi.data_ptr(), lo.data_ptr(), idx.data_ptr(), X.data_ptr(),
-        Y.data_ptr(), nrb, nrb, nbpr, B, X.shape[0],
-        torch.cuda.current_stream().cuda_stream)
+    code = bsr._launch(lib.bsr_spmm_split_f32, X.device, hi.data_ptr(),
+                       lo.data_ptr(), idx.data_ptr(), X.data_ptr(),
+                       Y.data_ptr(), nrb, nrb, nbpr, B, X.shape[0])
     kernels.check(lib, code, "bsr_spmm_split")
     return Y
+
+
+def load_b1(src):
+    """A single-vector version's library: the old separate kernel where the
+    source has its entry points (``lib.b1``), else a B3 source."""
+    if "bsr_spmv_f32" not in Path(src).read_text():
+        lib = load(src)
+        lib.b1 = False
+        return lib
+    one = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib = kernels._load("bsr_spmv", {"bsr_spmv_f32": one,
+                                     "bsr_spmv_f64": one}, src)
+    lib.b1 = True
+    return lib
+
+
+def apply_b1(lib, dataT, idx, x):
+    """One launch of a single-vector version on x (ncb*B,): the square
+    operator, or a row block of fewer block rows."""
+    nrb, nbpr, B, _ = dataT.shape
+    f32 = dataT.dtype == torch.float32
+    y = x.new_empty(nrb * B)
+    if lib.b1:
+        fn = lib.bsr_spmv_f32 if f32 else lib.bsr_spmv_f64
+        dims = (nrb, nbpr, B)
+    else:
+        if not lib.ncb:
+            raise SystemExit("bench_spmm: a B3 source without ncb takes no "
+                             "row block")
+        fn = lib.bsr_spmm_f32 if f32 else lib.bsr_spmm_f64
+        dims = (nrb, x.numel() // B, nbpr, B, 1)
+    code = bsr._launch(fn, x.device, dataT.data_ptr(), idx.data_ptr(),
+                       x.data_ptr(), y.data_ptr(), *dims)
+    kernels.check(lib, code, "single-vector")
+    return y
 
 
 def apply(lib, dataT, idx, X):
@@ -99,8 +156,8 @@ def apply(lib, dataT, idx, X):
     fn = lib.bsr_spmm_f32 if dataT.dtype == torch.float32 else lib.bsr_spmm_f64
     Y = torch.empty_like(X)
     dims = (nrb, nrb, nbpr, B) if lib.ncb else (nrb, nbpr, B)
-    code = fn(dataT.data_ptr(), idx.data_ptr(), X.data_ptr(), Y.data_ptr(),
-              *dims, X.shape[0], torch.cuda.current_stream().cuda_stream)
+    code = bsr._launch(fn, X.device, dataT.data_ptr(), idx.data_ptr(),
+                       X.data_ptr(), Y.data_ptr(), *dims, X.shape[0])
     kernels.check(lib, code, "bsr_spmm")
     return Y
 
@@ -125,16 +182,17 @@ def clocks(fn, seconds=1.0):
     return [float(v) for v in np.median(samples[2:], axis=0)]
 
 
-def bound_ms(dataT, idx, m, kind):
+def bound_ms(dataT, idx, m, kind, ncols=None):
     """The bound of one product of m lanes, as ``chip_smoke.py`` has it:
     the split form moves the f32 bytes (hi + lo) and does 6 bf16 flops per
-    element and lane."""
+    element and lane.  ``ncols``: the length of x for a row block (default:
+    square)."""
     size = dataT.element_size()
     split = kind == "split"
-    return bound(dataT.numel() * size, idx.numel() * 4, m,
-                 dataT.shape[0] * dataT.shape[2], size,
-                 (6 if split else 2) * dataT.numel() * m,
-                 PEAK_FLOPS["bf16" if split else kind])[0]
+    rows = dataT.shape[0] * dataT.shape[2]
+    return bound(dataT.numel() * size, idx.numel() * 4, m, ncols or rows,
+                 size, (6 if split else 2) * dataT.numel() * m,
+                 PEAK_FLOPS["bf16" if split else kind], npad_out=rows)[0]
 
 
 def b3_cases(libs, kind, dataT, idx, X):
@@ -150,8 +208,6 @@ def b3_cases(libs, kind, dataT, idx, X):
             fns[name] = fn
         else:
             failed.append(f"{name} rel err {err:.3e} > {TOL[kind]:.0e}")
-    if X.shape[0] == 1:
-        fns["B1 bsr_spmv"] = lambda: bsr.bsr_matvec(dataT, idx, X[0])
     return errs, failed, fns
 
 
@@ -186,6 +242,50 @@ def split_cases(libs, op, X):
     return errs, failed, fns
 
 
+def b1_cases(libs, kind, dataT, idx, x, square):
+    """The single-vector versions on one block-row range ``dataT``/``idx``
+    with the whole x, each held to the plain product, compared bit for bit
+    with "change" and, for a row block, with its own square rows
+    (``square``: {name: y} of the square launch, or None): (errors,
+    failures, {name: fn} of the versions that pass, plus the package's
+    wrapper and the library call, {name: y} of the versions)."""
+    ncb = x.numel() // dataT.shape[2]
+    rows = slice(0, dataT.shape[0] * dataT.shape[2])
+    ref = bsr.bsr_matvec_plain(dataT, idx, x)
+    errs, failed, fns, ys, first = {}, [], {}, {}, None
+    for name, lib in libs.items():
+        fn = (lambda lib=lib: apply_b1(lib, dataT, idx, x))
+        y = fn()
+        if first is None:
+            first = y
+        else:
+            print(f"[b1 {kind}] {name} bit for bit as change: "
+                  f"{bool(torch.equal(y, first))}", flush=True)
+        if square is not None and not torch.equal(y, square[name][rows]):
+            failed.append(f"{name}: row block differs from its square rows")
+        errs[name] = err = float((y.double() - ref.double()).abs().max()
+                                 / ref.double().abs().max())
+        if err <= TOL[kind]:
+            fns[name] = fn
+        else:
+            failed.append(f"{name} rel err {err:.3e} > {TOL[kind]:.0e}")
+        ys[name] = y
+    cols = {} if ncb == dataT.shape[0] else {"ncb": ncb}
+    fns["package"] = lambda: bsr.bsr_matvec(dataT, idx, x, **cols)
+    # how fast this card streams the same bytes at all: one reduction over
+    # the blocks, which reads each once (not the same function: no result)
+    fns["read"] = lambda: dataT.sum()
+    A = sparse_bsr(dataT, idx, x.numel())
+    err = float(((A @ x).double() - ref.double()).abs().max()
+                / ref.double().abs().max())
+    if err <= TOL[kind]:
+        fns["library"] = lambda: A @ x
+    else:
+        print(f"[b1 {kind}] library disagrees with the plain product: "
+              f"{err:.2e}", flush=True)
+    return errs, failed, fns, ys
+
+
 def ptxas_report(src):
     """ptxas's register, spill and warning lines for one source, built as the
     package builds it (``ops/kernels.py``) with ``-Xptxas -v``."""
@@ -203,8 +303,9 @@ def ptxas_report(src):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=list(SOURCES), default="b3",
-                    help="B3 (csrc/bsr_spmm.cu) or its bf16x3 form "
-                    "(csrc/bsr_spmm_split.cu)")
+                    help="B3 (csrc/bsr_spmm.cu), its bf16x3 form "
+                    "(csrc/bsr_spmm_split.cu) or the single-vector apply "
+                    "(B3's kernel with one vector)")
     ap.add_argument("--parent", help="root of another checkout whose copy "
                     "of the kernel's source is timed too")
     ap.add_argument("--variant", action="append", default=[],
@@ -239,14 +340,17 @@ def main(argv=None):
     source = SOURCES[args.kernel]
     versions = {"change": kernels.CSRC / source}
     if args.parent:
-        versions["parent"] = (Path(args.parent) / "eigensolvers_tpu_torch"
-                              / "csrc" / source)
+        csrc = Path(args.parent) / "eigensolvers_tpu_torch" / "csrc"
+        old = csrc / OLD_B1
+        versions["parent"] = (old if args.kernel == "b1" and old.exists()
+                              else csrc / source)
     for v in args.variant:
         name, _, src = v.partition("=")
         versions[name] = Path(src)
     with ThreadPoolExecutor(len(versions)) as pool:
-        libs = dict(zip(versions, pool.map(load_split if split else load,
-                                           versions.values())))
+        loader = {"b3": load, "split": load_split,
+                  "b1": load_b1}[args.kernel]
+        libs = dict(zip(versions, pool.map(loader, versions.values())))
         reports = pool.map(ptxas_report, versions.values()) \
             if args.ptxas else ()
         for name, lines in zip(versions, reports):
@@ -254,8 +358,42 @@ def main(argv=None):
                 print(f"[ptxas {name}] {line}")
 
     H_out, h_in = slice_factors()
-    lanes = [int(m) for m in (args.lanes or LANES[args.kernel]).split(",")]
+    lanes = [int(m) for m in
+             (args.lanes or LANES.get(args.kernel, "1")).split(",")]
     rows, failed = [], []
+
+    def run(kind, tag, errs, bad, fns, bnd, m=1):
+        """Time ``fns`` in turns (and, for B1, their device time) and
+        record the row."""
+        for line in bad:
+            failed.append(f"{kind} {tag} {line}")
+            print(f"[{kind} {tag}] {line}", flush=True)
+        order = list(fns) + list(fns)[::-1]
+        times = {n: [] for n in fns}
+        for name in order:
+            times[name].append(time_ms(fns[name], args.reps))
+        row = dict(card=card, kernel=args.kernel, dtype=kind, m=m, shape=tag,
+                   bound_ms=bnd, ms={n: min(t) for n, t in times.items()},
+                   turns=times, rel_err=errs)
+        if args.kernel == "b1":
+            row["device_ms"] = {n: device_ms(fn, args.reps)
+                                for n, fn in fns.items()}
+            row["host_us"] = {n: host_us(fn) for n, fn in fns.items()}
+        if args.clocks:
+            row["clocks"] = {n: clocks(fn) for n, fn in fns.items()}
+            print(f"[{kind} {tag}] median SM MHz, W under load: " + "; ".join(
+                f"{n} {c[0]:.0f}, {c[1]:.0f}" for n, c in
+                row["clocks"].items()), flush=True)
+        rows.append(row)
+        dms, hus = row.get("device_ms", {}), row.get("host_us", {})
+        print(f"[{kind} {tag}] bound {bnd:.4f} ms; " + "; ".join(
+            f"{n} {min(t):.4f} ms ({bnd / min(t):.0%}; "
+            f"{t[0]:.4f}/{t[1]:.4f}; rel err {errs.get(n, 0):.1e}"
+            + (f"; device {dms[n]:.4f} ms, gap {min(t) - dms[n]:.4f}"
+               if dms.get(n) is not None else "")
+            + (f"; host {hus[n]:.1f} us" if n in hus else "") + ")"
+            for n, t in times.items()), flush=True)
+
     for kind in ("split",) if split else args.dtypes.split(","):
         op = product.kron_sum_bsr(H_out, h_in, BANDWIDTH,
                                   DTYPES["f32" if split else kind], dev,
@@ -265,32 +403,25 @@ def main(argv=None):
                                   device=dev)[:, None].expand(
                                       op.idx.shape).contiguous()
         Xall = torch.as_tensor(np.random.RandomState(0).standard_normal(
-            (max(lanes), op.n_padded)), dtype=op.dtype, device=dev)
-        for m in lanes:
+            (1 if args.kernel == "b1" else max(lanes), op.n_padded)),
+            dtype=op.dtype, device=dev)
+        if args.kernel == "b1":
+            x = Xall[0]
+            nrb = op.dataT.shape[0]
+            per = nrb // ROW_RANGES
+            *res, square = b1_cases(libs, kind, op.dataT, op.idx, x, None)
+            run(kind, "square", *res, bound_ms(op.dataT, op.idx, 1, kind))
+            d, i = op.dataT[:per], op.idx[:per]
+            *res, _ = b1_cases(libs, kind, d, i, x, square)
+            run(kind, f"rows [0, {per}) of {nrb}", *res,
+                bound_ms(d, i, 1, kind, ncols=x.numel()))
+            del square, res
+        for m in [] if args.kernel == "b1" else lanes:
             X = Xall[:m].contiguous()
             errs, bad, fns = (split_cases(libs, op, X) if split else
                               b3_cases(libs, kind, op.dataT, op.idx, X))
-            for line in bad:
-                failed.append(f"{kind} m={m} {line}")
-                print(f"[{kind} m={m}] {line}", flush=True)
-            order = list(fns) + list(fns)[::-1]
-            times = {n: [] for n in fns}
-            for name in order:
-                times[name].append(time_ms(fns[name], args.reps))
-            bnd = bound_ms(op.dataT, op.idx, m, kind)
-            row = dict(card=card, kernel=args.kernel, dtype=kind, m=m,
-                       bound_ms=bnd, ms={n: min(t) for n, t in times.items()},
-                       turns=times, rel_err=errs)
-            if args.clocks:
-                row["clocks"] = {n: clocks(fn) for n, fn in fns.items()}
-                print(f"[{kind} m={m}] median SM MHz, W under load: " + "; ".join(
-                    f"{n} {c[0]:.0f}, {c[1]:.0f}" for n, c in
-                    row["clocks"].items()), flush=True)
-            rows.append(row)
-            print(f"[{kind} m={m}] bound {bnd:.4f} ms; " + "; ".join(
-                f"{n} {min(t):.4f} ms ({bnd / min(t):.0%}; "
-                f"{t[0]:.4f}/{t[1]:.4f}; rel err {errs.get(n, 0):.1e})"
-                for n, t in times.items()), flush=True)
+            run(kind, f"m={m}", errs, bad, fns,
+                bound_ms(op.dataT, op.idx, m, kind), m)
         del op, Xall
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

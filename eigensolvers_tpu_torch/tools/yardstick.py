@@ -1,10 +1,13 @@
 """The slice operator of ``chip_smoke.py`` and the yardstick its kernel
 times are read against, shared by ``chip_smoke.py`` and
 :mod:`eigensolvers_tpu_torch.tools.bench_spmm`: the operator's parameters,
-the card's rates, CUDA-event timing, the bound of one product, and the
-bf16x3 kernels' bounds against the exact split product."""
+the card's rates, CUDA-event timing, the profiler's device time and the
+host time of a launch, the bound of one product, the library yardstick,
+and the bf16x3 kernels' bounds against the exact split product."""
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -46,6 +49,61 @@ def time_ms(fn, reps=30, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, reps=30, tries=3):
+    """The device time in ms of the CUDA kernels that one call of ``fn``
+    runs (the kernels' own time, without the launch gap that an event time
+    counts), over ``reps`` calls under torch.profiler: the median kernel
+    time where each call runs one kernel, else the mean per call.  A
+    profile whose kernel count is not a multiple of ``reps`` missed some
+    (the profiler does, late in a long process) and is taken again, up to
+    ``tries`` times; None if none is whole."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if times and len(times) % reps == 0:
+            return float(np.median(times) if len(times) == reps
+                         else sum(times) / reps) / 1e3
+    return None
+
+
+def host_us(fn, calls=200):
+    """The host time in us of one call of ``fn`` that launches work on the
+    card: ``calls`` calls back to back, without waiting for the card (the
+    queue takes them), over the host clock.  Of the gap between an event
+    time and the kernel's device time, this is the part spent in Python
+    and the launch call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def sparse_bsr(dataT, idx, ncols):
+    """The library yardstick of the stored blocks: a
+    ``torch.sparse_bsr_tensor`` of the nrb block rows (ELL padding
+    included, the bytes the kernels read) by ``ncols`` columns, for ``A @
+    x``; the port never calls it."""
+    nrb, nbpr, B, _ = dataT.shape
+    crow = torch.arange(0, nrb * nbpr + 1, nbpr, dtype=torch.int32,
+                        device=dataT.device)
+    vals = dataT.transpose(-1, -2).reshape(nrb * nbpr, B, B).contiguous()
+    return torch.sparse_bsr_tensor(crow, idx.reshape(-1).contiguous(), vals,
+                                   size=(nrb * B, ncols),
+                                   check_invariants=False)
 
 
 def bound(block_bytes, idx_bytes, m, npad, itemsize, flops, peak,

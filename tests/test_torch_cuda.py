@@ -77,6 +77,84 @@ def test_bsr_spmv_matches_plain(dev, nrb, nbpr, B, dtype, tol):
     assert _relerr(y, bsr.bsr_matvec_plain(dataT, idx, x)) <= tol
 
 
+# B1 is B3's kernel with one vector (the one-lane tile of
+# csrc/bsr_spmm.cu): a CTA per block row and 128 output rows (B > 128 as
+# more CTAs on the grid's y axis), each block streamed in slabs of KS rows j
+# (64 in f32, 32 in f64) through a two-slot cp.async ring, with 16-byte
+# copies where B and the base allow them (B % 4 == 0 in f32, B % 2 == 0 in
+# f64) and narrower ones otherwise.  Each case: B off the 16-byte route (1,
+# 3, 5; odd B in f64 too); a partial last slab (B = 100 and 48 in both
+# types, 96 in f32; 200 also a second CTA of 72 rows); B = 1024 (the
+# largest, 8 CTAs over its rows); nbpr = 1; nrb below the 132 SMs.
+B1_EDGES = [(7, 3, 1), (9, 1, 3), (6, 2, 5), (7, 3, 100), (5, 1, 100),
+            (6, 2, 96), (5, 3, 48), (4, 2, 200), (3, 1, 1024), (2, 2, 1024)]
+
+
+def _b1_launch_checks(dataT, idx, x, tol, row_ranges):
+    """B1 against the plain version; a second launch bit for bit the first;
+    each row block [r0, r1) with the whole x bit for bit the square
+    launch's rows."""
+    nrb, _, B, _ = dataT.shape
+    bsr.reset_launch_counts()
+    y = bsr.bsr_matvec(dataT, idx, x)
+    y2 = bsr.bsr_matvec(dataT, idx, x)
+    torch.cuda.synchronize()
+    assert bsr.launches["bsr_spmv"] == 2
+    assert _relerr(y, bsr.bsr_matvec_plain(dataT, idx, x)) <= tol
+    assert torch.equal(y, y2)
+    for r0, r1 in row_ranges:
+        yr = bsr.bsr_matvec(dataT[r0:r1], idx[r0:r1], x, ncb=nrb)
+        torch.cuda.synchronize()
+        assert torch.equal(yr, y[r0 * B:r1 * B])
+
+
+@pytest.mark.parametrize("nrb,nbpr,B", B1_EDGES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_bsr_spmv_at_the_ring_edges(dev, nrb, nbpr, B, dtype, tol):
+    dataT, idx, x = _case(nrb, nbpr, B, dtype, dev, seed=B + nbpr)
+    _b1_launch_checks(dataT, idx, x, tol,
+                      [(0, 1), (nrb - 1, nrb), (1, nrb)])
+
+
+# nrb far above the SM count: many more block rows (CTAs) than the card
+# holds at once, so the grid runs in waves; row blocks of one row, of a
+# ragged range and of all but the first.
+@pytest.mark.parametrize("nrb,nbpr,B", [(5000, 3, 32), (1500, 2, 128),
+                                        (2000, 1, 100)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_bsr_spmv_runs_block_rows_in_many_waves(dev, nrb, nbpr, B, dtype,
+                                                tol):
+    dataT, idx, x = _case(nrb, nbpr, B, dtype, dev, seed=nrb)
+    _b1_launch_checks(dataT, idx, x, tol,
+                      [(nrb // 2, nrb // 2 + 1), (13, nrb - 7), (1, nrb)])
+
+
+@pytest.mark.parametrize("nrb,nbpr,B,offset", [
+    (4, 3, 128, 1),      # blocks and x not 16-byte aligned: elements
+    (5, 2, 100, 2),      # f64: 16-byte aligned again, f32 8-byte copies
+    (3, 2, 6, 0)])       # B = 6: 8-byte copies in f32, 16-byte in f64
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_bsr_spmv_takes_any_alignment(dev, nrb, nbpr, B, offset, dtype, tol):
+    """B1 on blocks and x placed ``offset`` elements into their buffers
+    (the copy width follows the addresses), against the plain version, and
+    bit for bit the same values as on aligned copies (every copy width
+    feeds the same sums in one order)."""
+    dataT, idx, x = _case(nrb, nbpr, B, dtype, dev, seed=offset)
+
+    def placed(t):
+        buf = torch.zeros(t.numel() + offset, dtype=dtype, device=dev)
+        buf[offset:] = t.reshape(-1)
+        return buf[offset:].view(t.shape)
+
+    y = bsr.bsr_matvec(placed(dataT), idx, placed(x))
+    torch.cuda.synchronize()
+    assert _relerr(y, bsr.bsr_matvec_plain(dataT, idx, x)) <= tol
+    assert torch.equal(y, bsr.bsr_matvec(dataT, idx, x))
+
+
 @pytest.mark.parametrize("nrb,nbpr,B", SHAPES)
 def test_bsr_spmv_split_matches_plain_and_f64(dev, nrb, nbpr, B):
     """B2 against its plain version summed in f64, the exact bf16x3 product

@@ -558,3 +558,26 @@ def test_row_blocks_check_their_column_ids_once_when_built():
         blk.matvec_lanes(torch.as_tensor(X[:, :16]))
     with pytest.raises(ValueError, match="no diagonal"):
         blk.diagonal()
+
+
+@pytest.mark.parametrize("nrb,ncb,nbpr,B", [(5, 5, 3, 8), (2, 8, 3, 16),
+                                            (3, 5, 2, 32)])
+@pytest.mark.parametrize("lanes", [0, 3])
+def test_library_yardstick_is_the_same_product(nrb, ncb, nbpr, B, lanes):
+    """``tools/yardstick.py::sparse_bsr``, the one library call the kernels
+    are timed beside (``chip_smoke.py``, ``tools/bench_spmm.py``): ``A @
+    x`` of the stored blocks gives the dense rows for one vector (``lanes``
+    0) and a stack of columns, square and as a row block with the whole x
+    (f64, 1e-12), and the JAX package's XLA product of a square operator."""
+    from eigensolvers_tpu_torch.tools.yardstick import sparse_bsr
+    dataT, idx, X, D = _rect_case(nrb, ncb, nbpr, B, 5)
+    A = sparse_bsr(torch.as_tensor(dataT), torch.as_tensor(idx), ncb * B)
+    x = torch.as_tensor(X[0] if lanes == 0 else X[:lanes].T.copy())
+    ref = D @ as_np(x)
+    np.testing.assert_allclose(as_np(A @ x), ref, rtol=1e-12, atol=1e-12)
+    if nrb == ncb and lanes == 0:
+        jax_y = np.asarray(_bsr_matvec_xla(jnp.asarray(dataT),
+                                           jnp.asarray(idx),
+                                           jnp.asarray(X[0])))
+        np.testing.assert_allclose(as_np(A @ x), jax_y, rtol=1e-12,
+                                   atol=1e-12)
