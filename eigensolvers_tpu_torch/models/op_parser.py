@@ -25,9 +25,11 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..ops.operators import (GroupedSoPOperator, SumOfProductOperator,
                              fuse_sop_terms, regroup_sop_terms)
+from ..utils.profiling import spanned
 from ..utils.units import unit2au
 from .bases import BasisBase, Electronic
 
@@ -94,6 +96,7 @@ def _eval_coeff(expr: str, params: Dict[str, float]) -> float:
     return value
 
 
+@spanned("es.parse")
 def parse_op_file(path: str) -> OpSpec:
     """Parse an MCTDH .op file into an :class:`OpSpec`."""
     with open(path) as fh:
@@ -202,6 +205,7 @@ def _factor_matrix(label: str, basis: BasisBase) -> np.ndarray:
     raise ValueError(f"unknown operator label {label!r}")
 
 
+@spanned("es.build")
 def build_sop_operator(spec: OpSpec, bases: Sequence[BasisBase],
                        dtype=np.float64,
                        term_chunk: Optional[int] = None,
@@ -222,7 +226,9 @@ def build_sop_operator(spec: OpSpec, bases: Sequence[BasisBase],
     before grouping (see
     :func:`~eigensolvers_tpu_torch.ops.operators.fuse_sop_terms`).  Leave
     unset for tensor-network backends, whose site dimensions must stay
-    physical.  ``device`` places the factors (default: the card)."""
+    physical.  ``device`` places the factors (default: the card).  The
+    span ``es.build`` times it, the uploads to the card included (one
+    synchronize of the card at the end)."""
     if len(bases) != spec.nModes:
         raise ValueError(f"need {spec.nModes} bases ({spec.mode_labels}), "
                          f"got {len(bases)}")
@@ -247,12 +253,17 @@ def build_sop_operator(spec: OpSpec, bases: Sequence[BasisBase],
                           for d, m in facs.items()})
                      for c, facs in term_list]
     if group_by_support:
-        return GroupedSoPOperator.from_terms(
+        op = GroupedSoPOperator.from_terms(
             nDim=len(dims), dims=dims, terms=term_list, dtype=dtype,
             device=device)
-    return SumOfProductOperator.from_terms(
-        nDim=len(dims), dims=dims, terms=term_list, dtype=dtype,
-        term_chunk=term_chunk, device=device)
+    else:
+        op = SumOfProductOperator.from_terms(
+            nDim=len(dims), dims=dims, terms=term_list, dtype=dtype,
+            term_chunk=term_chunk, device=device)
+    t = next(op.buffers(), None)
+    if t is not None and t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    return op
 
 
 def translateOperatorFile(path: str, bases: Sequence[BasisBase],

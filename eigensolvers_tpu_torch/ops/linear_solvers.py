@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from .operators import AbstractOperator, PaddedOperator, require_true_fp32
+from ..utils.profiling import span, spans, to_host
 
 
 class SolveResult(NamedTuple):
@@ -78,7 +79,7 @@ def reduced(t, reduce):
 def _norm(r, reduce=None) -> float:
     """||r|| as a host float, over every rank's rows under ``reduce``."""
     n = torch.linalg.vector_norm(r)
-    return (n if reduce is None else reduce(n, "norm")).item()
+    return to_host(n if reduce is None else reduce(n, "norm")).item()
 
 
 def _shifted_matvec(op: AbstractOperator, sigma, gf_sign):
@@ -127,57 +128,60 @@ def _minres_fixed(matvec, b, x0, rtol, atol, maxiter, psolve=None,
         r1 = b - matvec(x)
         nmv += 1
         y = psolve(r1)
-        beta = math.sqrt(max(reduced(_vdot_re(r1, y), reduce).item(), 0.0))
+        beta = math.sqrt(max(to_host(reduced(_vdot_re(r1, y), reduce)
+                                     ).item(), 0.0))
         r2 = r1
         w = torch.zeros_like(b)
         w2 = torch.zeros_like(b)
         oldb, dbar, epsln, phibar, cs, sn = 0.0, 0.0, 0.0, beta, -1.0, 0.0
         while itn < maxiter and phibar > tol_m and beta > 0:
-            itn += 1
-            v = (1.0 / beta) * y
-            y = matvec(v)
-            nmv += 1
-            # The b_{k-1} correction applies from each sweep's SECOND
-            # iteration on (oldb is exactly 0 only on a sweep's first step)
-            # — gating on the global itn would corrupt the first step of
-            # warm-restart sweeps.
-            gate = 1.0 if oldb > 0 else 0.0
-            coef = gate * -(beta / (oldb if oldb > 0 else 1.0))
-            y = torch.add(y, r1, alpha=coef)
-            alfa_t = reduced(_vdot_re(v, y), reduce)
-            y = torch.addcmul(y, alfa_t.to(y.dtype), r2, value=-1.0 / beta)
-            r1, r2 = r2, y
-            my = psolve(y)
-            alfa, bb = torch.stack(
-                [alfa_t, reduced(_vdot_re(y, my), reduce)]).tolist()
-            oldb = beta
-            beta = math.sqrt(max(bb, 0.0))
+            with span("es.minres.pass"):
+                itn += 1
+                v = (1.0 / beta) * y
+                y = matvec(v)
+                nmv += 1
+                # The b_{k-1} correction applies from each sweep's SECOND
+                # iteration on (oldb is exactly 0 only on a sweep's first step)
+                # — gating on the global itn would corrupt the first step of
+                # warm-restart sweeps.
+                gate = 1.0 if oldb > 0 else 0.0
+                coef = gate * -(beta / (oldb if oldb > 0 else 1.0))
+                y = torch.add(y, r1, alpha=coef)
+                alfa_t = reduced(_vdot_re(v, y), reduce)
+                y = torch.addcmul(y, alfa_t.to(y.dtype), r2,
+                                  value=-1.0 / beta)
+                r1, r2 = r2, y
+                my = psolve(y)
+                alfa, bb = to_host(torch.stack(
+                    [alfa_t, reduced(_vdot_re(y, my), reduce)])).tolist()
+                oldb = beta
+                beta = math.sqrt(max(bb, 0.0))
 
-            # Plane rotations (QR of the tridiagonal)
-            oldeps = epsln
-            delta = cs * dbar + sn * alfa
-            gbar = sn * dbar - cs * alfa
-            epsln = sn * beta
-            dbar = -cs * beta
-            gamma = max(math.sqrt(gbar * gbar + beta * beta), eps)
-            cs = gbar / gamma
-            sn = beta / gamma
-            phi = cs * phibar
-            phibar = sn * phibar
+                # Plane rotations (QR of the tridiagonal)
+                oldeps = epsln
+                delta = cs * dbar + sn * alfa
+                gbar = sn * dbar - cs * alfa
+                epsln = sn * beta
+                dbar = -cs * beta
+                gamma = max(math.sqrt(gbar * gbar + beta * beta), eps)
+                cs = gbar / gamma
+                sn = beta / gamma
+                phi = cs * phibar
+                phibar = sn * phibar
 
-            w1 = w2
-            w2 = w
-            w = torch.add(v, w1, alpha=-oldeps).add_(w2, alpha=-delta)
-            w = w.mul_(1.0 / gamma)
-            x = torch.add(x, w, alpha=phi)
-            y = my
+                w1 = w2
+                w2 = w
+                w = torch.add(v, w1, alpha=-oldeps).add_(w2, alpha=-delta)
+                w = w.mul_(1.0 / gamma)
+                x = torch.add(x, w, alpha=phi)
+                y = my
         return x, phibar, itn
 
     def norm(r):
         return _norm(r, reduce)
 
     tol_abs = max(rtol * math.sqrt(max(
-        reduced(_vdot_re(b, psolve(b)), reduce).item(), 0.0)), atol)
+        to_host(reduced(_vdot_re(b, psolve(b)), reduce)).item(), 0.0)), atol)
     x, phibar, itn = core(x0, tol_abs, 0)
     if not preconditioned:
         return SolveResult(x, phibar, itn, phibar <= tol_abs, nmv)
@@ -245,7 +249,7 @@ def _minres_lanes(apply, b, x, rtol, atol, maxiter, psolve=None,
     t = [_rowdot_re(b, psolve(b)), torch.linalg.vector_norm(b, dim=1)]
     if reduce is not None:
         t = [reduce(t[0]), reduce(t[1], "norm")]
-    t = torch.stack(t).cpu().double()
+    t = to_host(torch.stack(t)).double()
     tol_abs = np.maximum(rtol * np.sqrt(np.maximum(t[0].numpy(), 0.0)), atol)
     tol_true = np.maximum(rtol * t[1].numpy(), atol)
 
@@ -282,103 +286,106 @@ def _minres_lanes(apply, b, x, rtol, atol, maxiter, psolve=None,
         res = phase == _RESID
         if not (it.any() or res.any()):
             break
-        if it.any():
-            v = y * nxt[0]
-        W = apply(select(it, v, x) if it.any() else x)
-        applies += 1
-        reads = []
-        if it.any():
-            Yn = W + nxt[1] * r1
-            alfa_t = _rowdot_re(v, Yn)
+        with span("es.minres.pass"):
+            if it.any():
+                v = y * nxt[0]
+            W = apply(select(it, v, x) if it.any() else x)
+            applies += 1
+            reads = []
+            if it.any():
+                Yn = W + nxt[1] * r1
+                alfa_t = _rowdot_re(v, Yn)
+                if reduce is not None:
+                    alfa_t = reduce(alfa_t)
+                Yn = Yn - (alfa_t * nxt[0, :, 0])[:, None] * r2
+                my = psolve(Yn)
+                reads += [_rowdot_re(Yn, my)]
+            if res.any():
+                R = b - W
+                myR = psolve(R)
+                reads += [_rowdot_re(R, R), _rowdot_re(R, myR)]
+            got = torch.stack(reads)
             if reduce is not None:
-                alfa_t = reduce(alfa_t)
-            Yn = Yn - (alfa_t * nxt[0, :, 0])[:, None] * r2
-            my = psolve(Yn)
-            reads += [_rowdot_re(Yn, my)]
-        if res.any():
-            R = b - W
-            myR = psolve(R)
-            reads += [_rowdot_re(R, R), _rowdot_re(R, myR)]
-        got = torch.stack(reads)
-        if reduce is not None:
-            got = reduce(got)
-        if it.any():
-            got = torch.cat([alfa_t[None], got])
-        got = list(got.cpu().double().numpy())
+                got = reduce(got)
+            if it.any():
+                got = torch.cat([alfa_t[None], got])
+            got = list(to_host(got).double().numpy())
 
-        # -- host: plane rotations (QR of the tridiagonal) of iterating lanes
-        phi, oldeps, delta, inv_gamma = (np.zeros(m) for _ in range(4))
-        if it.any():
-            alfa, bb = got[0], got[1]
-            got = got[2:]
-        for k in np.nonzero(it)[0]:
-            itn[k] += 1
-            oldb[k] = beta[k]
-            beta[k] = math.sqrt(max(bb[k], 0.0))
-            oldeps[k] = epsln[k]
-            delta[k] = cs[k] * dbar[k] + sn[k] * alfa[k]
-            gbar = sn[k] * dbar[k] - cs[k] * alfa[k]
-            epsln[k] = sn[k] * beta[k]
-            dbar[k] = -cs[k] * beta[k]
-            gamma = max(math.sqrt(gbar * gbar + beta[k] * beta[k]), eps)
-            cs[k] = gbar / gamma
-            sn[k] = beta[k] / gamma
-            phi[k] = cs[k] * phibar[k]
-            phibar[k] = sn[k] * phibar[k]
-            inv_gamma[k] = 1.0 / gamma
-            if not sweep_runs(k):
-                if preconditioned:
-                    phase[k] = _RESID
-                else:
-                    finish(k, phibar[k])
+            # -- host: plane rotations (QR of the tridiagonal) of iterating
+            # lanes
+            phi, oldeps, delta, inv_gamma = (np.zeros(m) for _ in range(4))
+            if it.any():
+                alfa, bb = got[0], got[1]
+                got = got[2:]
+            for k in np.nonzero(it)[0]:
+                itn[k] += 1
+                oldb[k] = beta[k]
+                beta[k] = math.sqrt(max(bb[k], 0.0))
+                oldeps[k] = epsln[k]
+                delta[k] = cs[k] * dbar[k] + sn[k] * alfa[k]
+                gbar = sn[k] * dbar[k] - cs[k] * alfa[k]
+                epsln[k] = sn[k] * beta[k]
+                dbar[k] = -cs[k] * beta[k]
+                gamma = max(math.sqrt(gbar * gbar + beta[k] * beta[k]), eps)
+                cs[k] = gbar / gamma
+                sn[k] = beta[k] / gamma
+                phi[k] = cs[k] * phibar[k]
+                phibar[k] = sn[k] * phibar[k]
+                inv_gamma[k] = 1.0 / gamma
+                if not sweep_runs(k):
+                    if preconditioned:
+                        phase[k] = _RESID
+                    else:
+                        finish(k, phibar[k])
 
-        # -- host: sweep starts and true-residual checks of residual lanes
-        start = np.zeros(m, bool)
-        for k in np.nonzero(res)[0]:
-            rn = math.sqrt(max(got[0][k], 0.0))
-            while True:
-                if started[k]:
-                    # rounds cap guards against Lanczos breakdown (beta = 0)
-                    # stagnation
-                    if not (rn > tol_true[k] and itn[k] < maxiter
-                            and rounds[k] < 8):
-                        finish(k, rn)
+            # -- host: sweep starts and true-residual checks of residual lanes
+            start = np.zeros(m, bool)
+            for k in np.nonzero(res)[0]:
+                rn = math.sqrt(max(got[0][k], 0.0))
+                while True:
+                    if started[k]:
+                        # rounds cap guards against Lanczos breakdown
+                        # (beta = 0) stagnation
+                        if not (rn > tol_true[k] and itn[k] < maxiter
+                                and rounds[k] < 8):
+                            finish(k, rn)
+                            break
+                        tol_m[k] *= 0.1
+                        rounds[k] += 1
+                    started[k] = start[k] = True
+                    beta[k] = math.sqrt(max(got[1][k], 0.0))
+                    oldb[k] = dbar[k] = epsln[k] = sn[k] = 0.0
+                    cs[k] = -1.0
+                    phibar[k] = beta[k]
+                    if sweep_runs(k):
+                        phase[k] = _ITER
                         break
-                    tol_m[k] *= 0.1
-                    rounds[k] += 1
-                started[k] = start[k] = True
-                beta[k] = math.sqrt(max(got[1][k], 0.0))
-                oldb[k] = dbar[k] = epsln[k] = sn[k] = 0.0
-                cs[k] = -1.0
-                phibar[k] = beta[k]
-                if sweep_runs(k):
-                    phase[k] = _ITER
-                    break
-                if not preconditioned:
-                    finish(k, phibar[k])
-                    break
-                # an empty sweep leaves x unchanged: its check reuses rn
+                    if not preconditioned:
+                        finish(k, phibar[k])
+                        break
+                    # an empty sweep leaves x unchanged: its check reuses rn
 
-        # -- device: the vector updates, and the next pass's 1/beta and
-        # b_{k-1} correction (gated on oldb > 0: it applies from each sweep's
-        # SECOND iteration on, as oldb is exactly 0 only on a sweep's first)
-        nit = phase == _ITER
-        c = upload(phi, -oldeps, -delta, inv_gamma,
-                   np.where(nit, 1.0 / np.where(nit, beta, 1.0), 0.0),
-                   np.where(oldb > 0, -(beta / np.where(oldb > 0, oldb, 1.0)),
-                            0.0))
-        nxt = c[4:]
-        if it.any():
-            w_new = (v + c[1] * w2 + c[2] * w) * c[3]
-            x = select(it, x + c[0] * w_new, x)
-            w2, w = select(it, w, w2), select(it, w_new, w)
-            r1, r2 = select(it, r2, r1), select(it, Yn, r2)
-            y = select(it, my, y)
-        if start.any():
-            zero = torch.zeros_like(b)
-            r1, r2 = select(start, R, r1), select(start, R, r2)
-            y = select(start, myR, y)
-            w, w2 = select(start, zero, w), select(start, zero, w2)
+            # -- device: the vector updates, and the next pass's 1/beta and
+            # b_{k-1} correction (gated on oldb > 0: it applies from each
+            # sweep's SECOND iteration on, as oldb is exactly 0 only on a
+            # sweep's first)
+            nit = phase == _ITER
+            c = upload(phi, -oldeps, -delta, inv_gamma,
+                       np.where(nit, 1.0 / np.where(nit, beta, 1.0), 0.0),
+                       np.where(oldb > 0,
+                                -(beta / np.where(oldb > 0, oldb, 1.0)), 0.0))
+            nxt = c[4:]
+            if it.any():
+                w_new = (v + c[1] * w2 + c[2] * w) * c[3]
+                x = select(it, x + c[0] * w_new, x)
+                w2, w = select(it, w, w2), select(it, w_new, w)
+                r1, r2 = select(it, r2, r1), select(it, Yn, r2)
+                y = select(it, my, y)
+            if start.any():
+                zero = torch.zeros_like(b)
+                r1, r2 = select(start, R, r1), select(start, R, r2)
+                y = select(start, myR, y)
+                w, w2 = select(start, zero, w), select(start, zero, w2)
 
     conv = resnorm <= (tol_true if preconditioned else tol_abs)
     return x, resnorm, itn, conv, applies
@@ -424,7 +431,7 @@ def _gmres_fixed(matvec, b, x0, rtol, atol, restart, maxiter, psolve=None,
         givens = np.zeros((restart, 2), hdtype)       # (c_j, s_j) per column
         g = np.zeros(restart + 1, hdtype)             # rotated rhs beta*e1
         g[0] = rnorm
-        for j in range(restart):
+        for j in spans("es.gmres.step", range(restart)):
             w = matvec(psolve(V[j]))
             nmv += 1
             Vj = V[:j + 1]
@@ -436,8 +443,8 @@ def _gmres_fixed(matvec, b, x0, rtol, atol, restart, maxiter, psolve=None,
             if reduce is not None:
                 hnext_t = reduce(hnext_t, "norm")
             h = np.zeros(restart + 1, hdtype)
-            h[:j + 2] = torch.cat([h1 + h2, hnext_t[None].to(dtype)]
-                                  ).cpu().numpy()
+            h[:j + 2] = to_host(torch.cat([h1 + h2,
+                                           hnext_t[None].to(dtype)])).numpy()
             hnext = float(np.real(h[j + 1]))
             ok = hnext > tiny
             V[j + 1] = w / hnext if ok else 0.0
@@ -592,7 +599,7 @@ def lanes_over_b(mesh, solve, bs, sigmas, x0s=None) -> SolveResult:
          np.full(X.shape[0], float(res.matvecs))], axis=1),
         dtype=rdtype, device=X.device)
     G = mesh.allgather_b(torch.cat([X, tail.to(X.dtype)], dim=1))
-    tail = torch.real(G[:, -4:]).double().cpu().numpy()
+    tail = to_host(torch.real(G[:, -4:]).double()).numpy()
     x = G[:, :-4].reshape((G.shape[0],) + tuple(res.x.shape[1:]))
     return SolveResult(x, tail[:, 0], tail[:, 1].astype(np.int64),
                        tail[:, 2] > 0.5, int(tail[:, 3].max()))

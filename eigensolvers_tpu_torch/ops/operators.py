@@ -20,6 +20,13 @@ Every operator applies to one vector (``matvec``) and to a lane stack of m
 vectors, one per row (``matvec_lanes``: (m, n) -> (m, n)), the layout the
 batched solves keep their vectors in; ``matmat`` (n, m) -> (n, m) is the
 lane apply of the transpose.
+
+Every operator's applies are counted in one place: the outermost
+``matvec`` or ``matvec_lanes`` call under way, by any path, runs in the
+span ``es.apply`` and is counted by its lanes and type as well
+(``es.apply.m<lanes>.<dtype>``); the row-by-row default of
+``matvec_lanes`` is counted as ``es.apply.rowwise``
+(:mod:`~eigensolvers_tpu_torch.utils.profiling`).
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+from ..utils.profiling import count, span
 
 PRECISIONS = ("default", "high", "highest")
 
@@ -86,11 +95,43 @@ def as_tensor(a, device=None, dtype=None) -> torch.Tensor:
     return torch.as_tensor(arr, device=default_device(device), dtype=dtype)
 
 
+_apply_depth = 0          # 1 while an apply is under way
+
+
+def _counted(fn, single):
+    """The apply ``fn`` (a ``matvec`` or ``matvec_lanes``) in the span
+    ``es.apply``, counted by lanes and type, when no apply is under way;
+    an apply inside another (a composite's inner operator, the row-by-row
+    default) runs as it is."""
+    @functools.wraps(fn)
+    def apply(self, x):
+        global _apply_depth
+        if _apply_depth:
+            return fn(self, x)
+        _apply_depth = 1
+        try:
+            with span("es.apply") as s:
+                y = fn(self, x)
+        finally:
+            _apply_depth = 0
+        dtype = torch.promote_types(x.dtype, getattr(self, "dtype", x.dtype))
+        count(f"es.apply.m{1 if single else x.shape[0]}."
+              f"{str(dtype).removeprefix('torch.')}", s.seconds)
+        return y
+    return apply
+
+
 class AbstractOperator(torch.nn.Module):
-    """Minimal operator protocol: shape, dtype, matvec, to_dense."""
+    """Minimal operator protocol: shape, dtype, matvec, to_dense.  A
+    subclass's own ``matvec`` and ``matvec_lanes`` are counted (see the
+    module docstring)."""
 
     shape: tuple
     dtype: torch.dtype
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        _count_applies(cls)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -100,9 +141,10 @@ class AbstractOperator(torch.nn.Module):
 
     def matvec_lanes(self, X: torch.Tensor) -> torch.Tensor:
         """Apply to each row of a lane stack: X (m, n) -> (m, n).  The
-        default applies the matvec row by row; operators with a fused
-        multi-vector path override it."""
-        return torch.stack([self.matvec(x) for x in X])
+        default applies the matvec row by row (``es.apply.rowwise``);
+        operators with a fused multi-vector path override it."""
+        with span("es.apply.rowwise"):
+            return torch.stack([self.matvec(x) for x in X])
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
         """Apply to m stacked RHS: X (n, m) -> (n, m)."""
@@ -120,6 +162,15 @@ class AbstractOperator(torch.nn.Module):
     # Allow ``operator @ tensor`` in user code.
     def __matmul__(self, x):
         return self.matvec(x)
+
+
+def _count_applies(cls):
+    for name, single in (("matvec", True), ("matvec_lanes", False)):
+        if name in cls.__dict__:
+            setattr(cls, name, _counted(cls.__dict__[name], single))
+
+
+_count_applies(AbstractOperator)
 
 
 class DenseOperator(AbstractOperator):

@@ -58,7 +58,7 @@ from ..utils.subspace import (
     diagonalizeHamiltonian,
 )
 from ..utils.reporting import FeastReporter
-from ..utils.profiling import PhaseTimer
+from ..utils.profiling import PhaseTimer, span, spans, to_host
 from ..vectors.dense import _mm
 
 __all__ = [
@@ -149,8 +149,8 @@ def estimate_spectral_bounds(op, n: int, iters: int = 30, seed: int = 0,
         alpha = reduced(torch.vdot(v.to(w.dtype), w).real, reduce)
         w = w - alpha * v - beta * v_prev
         # alpha and ||w|| in one host read
-        alpha_h, new_beta = torch.stack(
-            [alpha, _vnorm(w, reduce)]).tolist()
+        alpha_h, new_beta = to_host(torch.stack(
+            [alpha, _vnorm(w, reduce)])).tolist()
         alphas.append(alpha_h)
         if new_beta < 1e-12:
             beta = 0.0
@@ -209,7 +209,7 @@ def _filter_rr(op, W, coeffs, a, b, reduce=None):
     Wf = _filter_stack(op, W, coeffs, a, b, reduce)
     Wrr = Wf.to(_rr_dtype(Wf))
     S, Hm = _gram_pair(Wrr, op.matvec_lanes(Wrr), reduce)
-    SH = torch.stack([S, Hm]).cpu().numpy()           # single host read
+    SH = to_host(torch.stack([S, Hm])).numpy()        # single host read
     return Wf, SH[0], SH[1]
 
 
@@ -332,11 +332,13 @@ def _fused_window(op, W, coeffs, a, b, eMin, eMax, eConv, maxit,
                              W.device)
     if rows is not None:          # every rank draws the whole pool
         R0 = R0[:, rows].contiguous()
-    Wc, ev_ref = _rr_round(op, W, coeffs, a, b, R0, reduce)
+    with span("es.chebyshev.outer"):
+        Wc, ev_ref = _rr_round(op, W, coeffs, a, b, R0, reduce)
     res, rounds = math.inf, 1
     while res >= eConv and rounds < maxit:
-        Wc, ev = _rr_round(op, Wc, coeffs, a, b, R0, reduce)
-        res = float(_window_residual(ev, ev_ref, eMin, eMax))
+        with span("es.chebyshev.outer"):
+            Wc, ev = _rr_round(op, Wc, coeffs, a, b, R0, reduce)
+            res = float(to_host(_window_residual(ev, ev_ref, eMin, eMax)))
         ev_ref, rounds = ev, rounds + 1
     Wsel, ev_out = _enrich(op, Wc, reduce)
     vec_res = _norm_rows(op.matvec_lanes(Wsel) - ev_out[:, None] * Wsel,
@@ -426,7 +428,7 @@ def chebyshevFilteredDiagonalization(
     N_SUBSPACE = m0
     ev = np.full(m0, np.nan)
     ref_ev = None
-    timer = PhaseTimer()
+    timer = PhaseTimer("es.chebyshev", W.device)
     # the polish dtype of the terminal upcast iteration below
     ptype = _rr_dtype(W)
 
@@ -448,7 +450,7 @@ def chebyshevFilteredDiagonalization(
                 Wd, ev_d, residual, iters, vres_d = _fused_window(
                     op, W, coeffs_try, a, b, eMin, eMax, eConv, maxit,
                     red, rows, n)
-                packed = torch.cat([ev_d, vres_d]).cpu().numpy()  # ONE read
+                packed = to_host(torch.cat([ev_d, vres_d])).numpy()  # ONE
             ev = packed[:m0]
             vec_res = packed[m0:]
             scale = max(abs(a), abs(b))
@@ -481,7 +483,7 @@ def chebyshevFilteredDiagonalization(
         printObj.close()
         return ev, [Y[0]._like(w, options) for w in Wd], status
 
-    for it in range(maxit):
+    for it in spans("es.chebyshev.outer", range(maxit)):
         status["outerIter"] = it
         status["quadrature"] = degree      # reporter's per-iteration counter
 

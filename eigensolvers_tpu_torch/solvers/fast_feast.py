@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.linear_solvers import _splitc_batch
+from ..utils.profiling import span
 from ..vectors.dense import TorchVector, _mm
 
 __all__ = ["feast_filter_program", "fused_eligible"]
@@ -92,8 +93,9 @@ def feast_filter_program(op, Ybase, C, sig_re, sig_im, mult_re, mult_im,
         cre = torch.where(ok, dre / den, zero).reshape(-1)     # Re 1/d
         cim = torch.where(ok, -dim / den, zero).reshape(-1)    # Im 1/d
         X0 = torch.cat([B * cre[:, None], B * cim[:, None]], dim=1)
-    res = _splitc_batch(op, B, sre, sim, X0, rtol, atol, 1.0, maxiter,
-                        precond=precond, escalate=escalate)
+    with span("es.linear.solve"):
+        res = _splitc_batch(op, B, sre, sim, X0, rtol, atol, 1.0, maxiter,
+                            precond=precond, escalate=escalate)
     X = res.x.to(Y.dtype)                                # (nk*m0, 2, n)
     Xr = X[:, 0, :].reshape(nk, m0, n)
     Xi = X[:, 1, :].reshape(nk, m0, n)

@@ -39,7 +39,7 @@ import torch
 from ..ops.linear_solvers import reduced as _reduced
 from ..ops.operators import as_operator, as_tensor
 from ..utils import checkpointing
-from ..utils.profiling import PhaseTimer
+from ..utils.profiling import PhaseTimer, spans, to_host
 from ..utils.reporting import LanczosReporter
 from ..utils.status import lanczos_status
 from ..utils.subspace import (
@@ -86,7 +86,7 @@ def _row_proxies(V, nvec, reduce=None):
                 A = Vv.to(dtype)
                 col = _reduced((A.conj() if conjugate else A) @ r.to(dtype),
                                reduce)
-                cache[key] = (other, col.cpu().numpy())
+                cache[key] = (other, to_host(col).numpy())
             val = cache[key][1][self.i]
             return complex(val) if np.iscomplexobj(val) else float(val)
 
@@ -181,8 +181,8 @@ def fastLanczosDiagonalization(
         """<g_i | H g_j> for the rows of G: one lane-stack apply."""
         if report is not None:
             report["matmats"] = report.get("matmats", 0) + 1
-        return _reduced(G.conj() @ opH.matvec_lanes(G).to(dtype).T,
-                        red).cpu().numpy()
+        return to_host(_reduced(G.conj() @ opH.matvec_lanes(G).to(dtype).T,
+                                red)).numpy()
 
     Hmat = project(guesses)
     Smat = np.eye(nBlock, dtype=Hmat.dtype)
@@ -201,12 +201,12 @@ def fastLanczosDiagonalization(
         report_pick, status, outFileName, summaryFileName)
     printObj.fileHeader()
 
-    timer = PhaseTimer()
+    timer = PhaseTimer("es.fast_lanczos", V.device)
     ev = np.full(nBlock, np.nan)
     uSH = None
     continueIteration = True
 
-    for outerIter in range(maxit):
+    for outerIter in spans("es.fast_lanczos.outer", range(maxit)):
         status["outerIter"] = outerIter
         status["KSmaxD"] = [0]
         for innerIter in range(1, L):

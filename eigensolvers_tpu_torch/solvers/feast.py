@@ -43,7 +43,7 @@ from ..utils.subspace import (
 )
 from ..utils.quadrature import quadraturePointsWeights
 from ..utils.reporting import FeastReporter
-from ..utils.profiling import PhaseTimer
+from ..utils.profiling import PhaseTimer, spans, to_host
 
 
 def _node_optype(z):
@@ -288,7 +288,7 @@ def _feast_loop_fused(A, Y, gk, wk, thetas, zs, eRadius,
     ev = np.full(N_SUBSPACE, np.nan)
     ref_ev = None
 
-    for it in range(maxit):
+    for it in spans("es.feast.outer", range(maxit)):
         status["outerIter"] = it
         status["quadrature"] = nk - 1
         warm = bool(warmStartSolves and it > 0
@@ -304,7 +304,7 @@ def _feast_loop_fused(A, Y, gk, wk, thetas, zs, eRadius,
                 maxiter, precond=precond, warm=warm, escalate=escalate)
             # one host transfer for everything the host-side RR needs (the
             # per-lane results are host arrays already)
-            Smat, Hmat = torch.stack([S, Hm]).cpu().numpy()
+            Smat, Hmat = to_host(torch.stack([S, Hm])).numpy()
         nbad = int(res.converged.size - np.count_nonzero(res.converged))
         if nbad:
             msg = (f"Batched split solver: {nbad}/{res.converged.size} lanes "
@@ -433,7 +433,7 @@ def feastDiagonalization(A, Y: List[AbstractVector],
 
     ev = np.full(N_SUBSPACE, np.nan)
     ref_ev = None
-    timer = PhaseTimer()
+    timer = PhaseTimer("es.feast", getattr(Y[0], "device", None))
 
     use_fused = False
     if batchQuadratureSolves and Y[0].hasExactAddition:
@@ -452,7 +452,7 @@ def feastDiagonalization(A, Y: List[AbstractVector],
         printObj.close()
         return ev, Y, status
 
-    for it in range(maxit):
+    for it in spans("es.feast.outer", range(maxit)):
         status["outerIter"] = it
 
         use_batch = (batchQuadratureSolves and Y[0].hasExactAddition

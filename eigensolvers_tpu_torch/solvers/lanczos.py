@@ -41,7 +41,7 @@ from ..utils.subspace import (
 )
 from ..utils.reporting import LanczosReporter
 from ..utils import checkpointing
-from ..utils.profiling import PhaseTimer
+from ..utils.profiling import PhaseTimer, spans
 
 
 # ---------------------------------------------------------------------------
@@ -240,13 +240,14 @@ def inexactLanczosDiagonalization(
     lindepProblem = False
     continueIteration = True
     justRestartedThick = False
-    timer = PhaseTimer()
+    timer = PhaseTimer("es.lanczos", getattr(Ylist[0], "device", None))
 
-    for outerIter in range(maxit):
+    for outerIter in spans("es.lanczos.outer", range(maxit)):
         status["outerIter"] = outerIter
         status["KSmaxD"] = [Ylist[0].maxD]
         status["fitmaxD"] = None
-        for innerIter in range(1, L):  # Y0 is the first basis vector
+        # Y0 is the first basis vector
+        for innerIter in spans("es.lanczos.step", range(1, L)):
             status["innerIter"] = innerIter
             status["cumIter"] += 1
             #
@@ -324,22 +325,20 @@ def inexactLanczosDiagonalization(
             # run; the restart + futile-restart machinery below needs the
             # flagged-but-continuing path to be reachable.)
             #
-            timer_diag = timer.phase("diagonalize")
-            timer_diag.__enter__()
-            status, uS = lowdinOrthoMatrix(Smat, status)
-            if status["lindep"] and printObj.writeOut:
-                warnings.warn(
-                    f"Löwdin flagged linear dependence at iteration {outerIter}/"
-                    f"{innerIter}; continuing with {uS.shape[1]} of "
-                    f"{uS.shape[0]} directions")
-            ev, uv = diagonalizeHamiltonian(uS, Hmat, printObj)
-            uSH = uS @ uv
-            del uv
-            idx = pick(uSH, Ylist, ev)
-            assert len(idx) == len(ev), f"{len(ev)=} {len(idx)=}"
-            ev = ev[idx]
-            uSH = uSH[:, idx]
-            timer_diag.__exit__(None, None, None)
+            with timer.phase("diagonalize"):
+                status, uS = lowdinOrthoMatrix(Smat, status)
+                if status["lindep"] and printObj.writeOut:
+                    warnings.warn(
+                        f"Löwdin flagged linear dependence at iteration "
+                        f"{outerIter}/{innerIter}; continuing with "
+                        f"{uS.shape[1]} of {uS.shape[0]} directions")
+                ev, uv = diagonalizeHamiltonian(uS, Hmat, printObj)
+                uSH = uS @ uv
+                del uv
+                idx = pick(uSH, Ylist, ev)
+                assert len(idx) == len(ev), f"{len(ev)=} {len(idx)=}"
+                ev = ev[idx]
+                uSH = uSH[:, idx]
             #
             # Convergence / continuation checks
             #

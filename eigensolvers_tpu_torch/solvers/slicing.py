@@ -34,6 +34,7 @@ import torch
 from ..ops.linear_solvers import reduced
 from ..ops.operators import (AbstractOperator, as_operator, default_device,
                              operator_device)
+from ..utils.profiling import span, to_host
 from .chebyshev import chebyshev_window_coefficients, estimate_spectral_bounds
 
 __all__ = [
@@ -91,7 +92,7 @@ def chebyshev_moments(op, n: int, degree: int = 300, nProbes: int = 8,
         Tkp1 = scaled_apply(Tk).mul_(2.0).sub_(Tkm1)
         mu[k] = (V * Tkp1).sum(dim=1).mean()
         Tkm1, Tk = Tk, Tkp1
-    return reduced(mu, reduce).cpu().numpy().astype(np.float64), (a, b)
+    return to_host(reduced(mu, reduce)).numpy().astype(np.float64), (a, b)
 
 
 def window_count_from_moments(mu: np.ndarray, a: float, b: float,
@@ -301,9 +302,10 @@ def spectrumSlicingDiagonalization(
                 f"eigenpairs may be missed in this window")
         Y0 = sla.qr(rng.rand(n, m0), mode="economic")[0]
         Y = [vector_cls(Y0[:, i], opts, device=device) for i in range(m0)]
-        ev_w, uv_w, st_w = feastDiagonalization(
-            A, Y, nc, quad, clo, chi, eConv, maxit,
-            writeOut=writeOut, **feast_kwargs)
+        with span("es.slicing.outer"):
+            ev_w, uv_w, st_w = feastDiagonalization(
+                A, Y, nc, quad, clo, chi, eConv, maxit,
+                writeOut=writeOut, **feast_kwargs)
         # half-open ownership: [lo, hi) except the last window, [lo, hi]
         kept = [i for i, e in enumerate(np.asarray(ev_w))
                 if lo <= e < hi or (last and abs(e - hi) < 1e-12 * max(

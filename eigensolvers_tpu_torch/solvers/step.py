@@ -28,6 +28,7 @@ import torch
 from ..ops.linear_solvers import gmres_batch, minres_batch, reduced
 from ..ops.operators import require_true_fp32
 from ..parallel.sharded import solve_lanes
+from ..utils.profiling import span, to_host
 
 
 class KrylovStepResult(NamedTuple):
@@ -99,18 +100,19 @@ def block_krylov_step(op, V, nvec, seeds, sigma, rtol, maxiter=200,
         kwargs["restart"] = restart
     else:
         raise ValueError(f"unknown solver {solver!r}")
-    if mesh is None:
-        red = None
-        res = fn(op, seeds, [sigma] * nBlock, **kwargs)
-    else:
-        red = mesh.allreduce_x
-        pad = (-nBlock) % mesh.shape["b"]       # zero lanes finish at once
-        B = torch.cat([seeds, seeds.new_zeros((pad, seeds.shape[1]))])
-        res = solve_lanes(mesh, lambda o, Bl, s, X0, r: fn(
-            o, Bl, s, x0s=X0, reduce=r, **kwargs), op, B,
-            [sigma] * (nBlock + pad))
-        res = res._replace(x=res.x[:nBlock], resnorm=res.resnorm[:nBlock],
-                           iterations=res.iterations[:nBlock])
+    red = None if mesh is None else mesh.allreduce_x
+    with span("es.linear.solve"):
+        if mesh is None:
+            res = fn(op, seeds, [sigma] * nBlock, **kwargs)
+        else:
+            pad = (-nBlock) % mesh.shape["b"]   # zero lanes finish at once
+            B = torch.cat([seeds, seeds.new_zeros((pad, seeds.shape[1]))])
+            res = solve_lanes(mesh, lambda o, Bl, s, X0, r: fn(
+                o, Bl, s, x0s=X0, reduce=r, **kwargs), op, B,
+                [sigma] * (nBlock + pad))
+            res = res._replace(x=res.x[:nBlock],
+                               resnorm=res.resnorm[:nBlock],
+                               iterations=res.iterations[:nBlock])
     nrm = torch.linalg.vector_norm(res.x, dim=1, keepdim=True)
     if red is not None:
         nrm = red(nrm, "norm")
@@ -121,7 +123,7 @@ def block_krylov_step(op, V, nvec, seeds, sigma, rtol, maxiter=200,
     Vv = V[:nvec]
     for _ in range(2):
         X = X - (Vv.T @ reduced(Vv.conj() @ X.T, red)).T
-    G = reduced(X.conj() @ X.T, red).cpu().numpy()
+    G = to_host(reduced(X.conj() @ X.T, red)).numpy()
     L, oks = _masked_cholesky(G, lindep)
 
     # W = L^{-1} X by forward substitution; lindep rows are zero
@@ -140,8 +142,8 @@ def block_krylov_step(op, V, nvec, seeds, sigma, rtol, maxiter=200,
     Vwork = V.clone()
     Vwork[nvec:nvec + int(oks.sum())] = newV[torch.as_tensor(oks)]
     AV = op.matvec_lanes(newV).to(V.dtype)
-    C = reduced(Vwork.conj() @ torch.cat([newV, AV]).T,
-                red).cpu().numpy()                          # (M, 2nBlock)
+    C = to_host(reduced(Vwork.conj() @ torch.cat([newV, AV]).T,
+                        red)).numpy()                       # (M, 2nBlock)
 
     if report is not None:
         applies = "matmats" if solver == "minres" else "matvecs"

@@ -44,6 +44,7 @@ from .abstract import AbstractVector, LINDEP_DEFAULT_VALUE
 from ..config import normalize_options
 from ..ops.operators import as_operator, as_tensor, require_true_fp32
 from ..ops import linear_solvers as ls
+from ..utils.profiling import span, to_host
 
 
 def _mm(a, b):
@@ -200,7 +201,7 @@ class TorchVector(AbstractVector):
         return self
 
     def norm(self) -> float:
-        return float(self._norm_t())
+        return float(to_host(self._norm_t()))
 
     def real(self) -> "TorchVector":
         return self._like(torch.real(self.array))
@@ -213,7 +214,7 @@ class TorchVector(AbstractVector):
         a = self.array.reshape(-1).to(dtype)
         b = other.array.reshape(-1).to(dtype)
         val = torch.vdot(a, b) if conjugate else torch.dot(a, b)
-        val = ls.reduced(val, self._reducer(self))
+        val = to_host(ls.reduced(val, self._reducer(self)))
         return complex(val) if val.is_complex() else float(val)
 
     def copy(self) -> "TorchVector":
@@ -302,7 +303,7 @@ class TorchVector(AbstractVector):
         for _ in range(len(xs)):  # ≥1 drop per pass → terminates
             V = cls._stack([xs[i] for i in keep])
             Q, R = cls._tall_qr(V.T, xs[0])
-            d = torch.abs(torch.diagonal(R)).cpu().numpy()
+            d = to_host(torch.abs(torch.diagonal(R))).numpy()
             ok = d * d > lindep
             if ok.all():
                 Qh = Q.T
@@ -323,7 +324,7 @@ class TorchVector(AbstractVector):
         dtype = torch.promote_types(x.dtype, Q.dtype)
         arr, innerprod = _mgs(x.array.reshape(-1).to(dtype), Q.to(dtype),
                               cls._reducer(x))
-        innerprod = float(innerprod)
+        innerprod = float(to_host(innerprod))
         if innerprod > lindep:
             arr = arr / math.sqrt(innerprod)
             return x._like(arr.reshape(x.array.shape))
@@ -332,8 +333,8 @@ class TorchVector(AbstractVector):
     @classmethod
     def overlapMatrix(cls, vectors: List["TorchVector"]) -> np.ndarray:
         V = cls._stack(vectors)
-        return ls.reduced(_mm(V.conj(), V.T),
-                        cls._reducer(vectors[0])).cpu().numpy()
+        return to_host(ls.reduced(_mm(V.conj(), V.T),
+                                  cls._reducer(vectors[0]))).numpy()
 
     @classmethod
     def matrixRepresentation(cls, operator,
@@ -341,15 +342,15 @@ class TorchVector(AbstractVector):
         op = cls._as_operator(operator, vectors[0])
         V = cls._stack(vectors)
         AV = op.matmat(V.T)                                  # (n, m)
-        return ls.reduced(_mm(V.conj(), AV.to(V.dtype)),
-                        cls._reducer(vectors[0])).cpu().numpy()
+        return to_host(ls.reduced(_mm(V.conj(), AV.to(V.dtype)),
+                                  cls._reducer(vectors[0]))).numpy()
 
     @classmethod
     def extendOverlapMatrix(cls, vectors: List["TorchVector"],
                             overlap: np.ndarray) -> np.ndarray:
         V = cls._stack(vectors)
-        col = ls.reduced(_mm(V.conj(), V[-1]),    # col_i = <v_i | v_new>
-                       cls._reducer(vectors[0])).cpu().numpy()
+        col = to_host(ls.reduced(_mm(V.conj(), V[-1]),  # <v_i | v_new>
+                                 cls._reducer(vectors[0]))).numpy()
         overlap = np.append(overlap, col[None, :-1].conj(), axis=0)
         overlap = np.append(overlap, col[:, None], axis=1)
         return overlap
@@ -360,8 +361,8 @@ class TorchVector(AbstractVector):
         op = cls._as_operator(operator, vectors[0])
         V = cls._stack(vectors)
         Hket = op.matvec(V[-1]).to(V.dtype)
-        col = ls.reduced(_mm(V.conj(), Hket),     # <v_i | A v_new>
-                       cls._reducer(vectors[0])).cpu().numpy()
+        col = to_host(ls.reduced(_mm(V.conj(), Hket),   # <v_i | A v_new>
+                                 cls._reducer(vectors[0]))).numpy()
         opMat = np.append(opMat, col[None, :-1].conj(), axis=0)
         opMat = np.append(opMat, col[:, None], axis=1)
         return opMat
@@ -427,37 +428,39 @@ class TorchVector(AbstractVector):
                     reverseGF=reverseGF, rtol_scale=rtol_scale,
                     report=report))
             return out
-        op = cls._as_operator(H, bs[0])
-        B = torch.stack([b.array.reshape(-1) for b in bs])
-        if B.is_complex():
-            raise ValueError("split-complex solves need real right-hand sides")
-        if x0s is None:
-            X0 = None
-        elif isinstance(x0s, (list, tuple)):
-            X0 = torch.stack([x.array.reshape(-1) for x in x0s])
-        else:
-            X0 = as_tensor(x0s, B.device)
-        nl = len(bs)
-        B, sig, X0 = cls._pad_lanes(B, list(sigmas), X0, bs[0])
-        res = cls._batched(
-            lambda o, Bl, s, X0l, red: ls.gmres_splitc_batch(
-                o, Bl, s, x0s=X0l, rtol=opts["linear_tol"] * rtol_scale,
-                atol=opts["linear_atol"] * rtol_scale,
-                restart=opts["gmresRestart"], maxiter=opts["linearIter"],
-                reverseGF=reverseGF, precond=opts.get("preconditioner"),
-                escalate=int(opts.get("escalateIter", 3)), reduce=red),
-            op, B, sig, X0, bs[0])
-        res = _first_lanes(res, nl)
-        cls._account(opts, report, "minres", res, len(bs))
-        for k, ok in enumerate(res.converged):
-            if not ok:
-                msg = (f"Batched split solver lane {k} did not converge: "
-                       f"residual {float(res.resnorm[k]):.3e} after "
-                       f"{int(res.iterations[k])} iterations")
-                if opts.get("errorOnNonConvergence", True):
-                    raise RuntimeError(msg)
-                warnings.warn(msg)
-        return list(res.x)
+        with span("es.linear.solve"):
+            op = cls._as_operator(H, bs[0])
+            B = torch.stack([b.array.reshape(-1) for b in bs])
+            if B.is_complex():
+                raise ValueError(
+                    "split-complex solves need real right-hand sides")
+            if x0s is None:
+                X0 = None
+            elif isinstance(x0s, (list, tuple)):
+                X0 = torch.stack([x.array.reshape(-1) for x in x0s])
+            else:
+                X0 = as_tensor(x0s, B.device)
+            nl = len(bs)
+            B, sig, X0 = cls._pad_lanes(B, list(sigmas), X0, bs[0])
+            res = cls._batched(
+                lambda o, Bl, s, X0l, red: ls.gmres_splitc_batch(
+                    o, Bl, s, x0s=X0l, rtol=opts["linear_tol"] * rtol_scale,
+                    atol=opts["linear_atol"] * rtol_scale,
+                    restart=opts["gmresRestart"], maxiter=opts["linearIter"],
+                    reverseGF=reverseGF, precond=opts.get("preconditioner"),
+                    escalate=int(opts.get("escalateIter", 3)), reduce=red),
+                op, B, sig, X0, bs[0])
+            res = _first_lanes(res, nl)
+            cls._account(opts, report, "minres", res, len(bs))
+            for k, ok in enumerate(res.converged):
+                if not ok:
+                    msg = (f"Batched split solver lane {k} did not converge: "
+                           f"residual {float(res.resnorm[k]):.3e} after "
+                           f"{int(res.iterations[k])} iterations")
+                    if opts.get("errorOnNonConvergence", True):
+                        raise RuntimeError(msg)
+                    warnings.warn(msg)
+            return list(res.x)
 
     # -- linear solves ------------------------------------------------------
     @staticmethod
@@ -569,42 +572,47 @@ class TorchVector(AbstractVector):
         A dict under ``options["linearSystemArgs"]["report"]`` (shared by
         every vector derived from the one that carries it) accumulates
         "solves", "iterations" and "matvecs" over all solves."""
-        solver, opts = cls._solve_opts(b, sigma, opType)
-        op = cls._as_operator(H, b)
-        if cls._want_split(op, b, sigma, opts):
-            return cls._split_single(op, b, sigma, x0, opts, reverseGF)
-        dtype = cls._solve_dtype(op, sigma, b.dtype)
-        barr = b.array.reshape(-1).to(dtype)
-        x0arr = None if x0 is None else x0.array.reshape(-1).to(dtype)
-        red = cls._reducer(b)
-        if solver == "exact":
-            res = ls.solve_exact(op, barr, sigma, reverseGF=reverseGF)
-        elif solver == "minres":
-            res = ls.minres(op, barr, sigma, x0=x0arr,
-                            rtol=opts["linear_tol"], atol=opts["linear_atol"],
-                            maxiter=opts["linearIter"], reverseGF=reverseGF,
-                            precond=opts.get("preconditioner"), reduce=red)
-        elif solver == "gmres":
-            res = ls.gmres(op, barr, sigma, x0=x0arr,
-                           rtol=opts["linear_tol"], atol=opts["linear_atol"],
-                           restart=opts["gmresRestart"],
-                           maxiter=opts["linearIter"], reverseGF=reverseGF,
-                           precond=opts.get("preconditioner"), reduce=red)
-        else:
-            raise ValueError(
-                f"unknown linearSolver {solver!r}; available: minres, gmres "
-                f"(alias gcrotmk), exact (alias pardiso)")
-        cls._account(opts, None, solver, res, 0)
-        # the convergence scalars are host values already: the solver's
-        # one read per iteration brought them back
-        if not res.converged:
-            msg = (f"Iterative solver {solver} did not converge: "
-                   f"residual {res.resnorm:.3e} after "
-                   f"{res.iterations} iterations")
-            if opts.get("errorOnNonConvergence", True):
-                raise RuntimeError(msg)
-            warnings.warn(msg)
-        return b._like(res.x.reshape(b.array.shape))
+        with span("es.linear.solve"):
+            solver, opts = cls._solve_opts(b, sigma, opType)
+            op = cls._as_operator(H, b)
+            if cls._want_split(op, b, sigma, opts):
+                return cls._split_single(op, b, sigma, x0, opts, reverseGF)
+            dtype = cls._solve_dtype(op, sigma, b.dtype)
+            barr = b.array.reshape(-1).to(dtype)
+            x0arr = None if x0 is None else x0.array.reshape(-1).to(dtype)
+            red = cls._reducer(b)
+            if solver == "exact":
+                res = ls.solve_exact(op, barr, sigma, reverseGF=reverseGF)
+            elif solver == "minres":
+                res = ls.minres(op, barr, sigma, x0=x0arr,
+                                rtol=opts["linear_tol"],
+                                atol=opts["linear_atol"],
+                                maxiter=opts["linearIter"],
+                                reverseGF=reverseGF,
+                                precond=opts.get("preconditioner"),
+                                reduce=red)
+            elif solver == "gmres":
+                res = ls.gmres(op, barr, sigma, x0=x0arr,
+                               rtol=opts["linear_tol"],
+                               atol=opts["linear_atol"],
+                               restart=opts["gmresRestart"],
+                               maxiter=opts["linearIter"], reverseGF=reverseGF,
+                               precond=opts.get("preconditioner"), reduce=red)
+            else:
+                raise ValueError(
+                    f"unknown linearSolver {solver!r}; available: minres, "
+                    f"gmres (alias gcrotmk), exact (alias pardiso)")
+            cls._account(opts, None, solver, res, 0)
+            # the convergence scalars are host values already: the solver's
+            # one read per iteration brought them back
+            if not res.converged:
+                msg = (f"Iterative solver {solver} did not converge: "
+                       f"residual {res.resnorm:.3e} after "
+                       f"{res.iterations} iterations")
+                if opts.get("errorOnNonConvergence", True):
+                    raise RuntimeError(msg)
+                warnings.warn(msg)
+            return b._like(res.x.reshape(b.array.shape))
 
     @classmethod
     def solveBatch(cls, H, bs, sigmas, x0s=None, opType: str = "her",
@@ -631,51 +639,54 @@ class TorchVector(AbstractVector):
                     opType=opType, reverseGF=reverseGF,
                     rtol_scale=rtol_scale, report=report))
             return out
-        op = cls._as_operator(H, bs[0])
-        sig = np.asarray(sigmas)
-        dtype = cls._solve_dtype(op, sig, *[b.dtype for b in bs])
-        B = torch.stack([b.array.reshape(-1).to(dtype) for b in bs])
-        if x0s is None:
-            X0 = None
-        elif isinstance(x0s, (list, tuple)):
-            X0 = torch.stack([x.array.reshape(-1).to(dtype) for x in x0s])
-        else:                       # raw (nlanes, n) warm-start stack
-            X0 = as_tensor(x0s, B.device).to(dtype)
+        with span("es.linear.solve"):
+            op = cls._as_operator(H, bs[0])
+            sig = np.asarray(sigmas)
+            dtype = cls._solve_dtype(op, sig, *[b.dtype for b in bs])
+            B = torch.stack([b.array.reshape(-1).to(dtype) for b in bs])
+            if x0s is None:
+                X0 = None
+            elif isinstance(x0s, (list, tuple)):
+                X0 = torch.stack([x.array.reshape(-1).to(dtype) for x in x0s])
+            else:                       # raw (nlanes, n) warm-start stack
+                X0 = as_tensor(x0s, B.device).to(dtype)
 
-        if solver == "exact":
-            outs = ls.solve_exact_batch(op, B, sig, reverseGF=reverseGF)
-            res = ls.SolveResult(torch.stack([o.x for o in outs]),
-                                 np.zeros(len(outs)), np.ones(len(outs), int),
-                                 np.ones(len(outs), bool), 0)
-        elif solver in ("minres", "gmres"):
-            fn = ls.minres_batch if solver == "minres" else ls.gmres_batch
-            kwargs = dict(rtol=opts["linear_tol"] * rtol_scale,
-                          atol=opts["linear_atol"] * rtol_scale,
-                          maxiter=opts["linearIter"], reverseGF=reverseGF,
-                          precond=opts.get("preconditioner"))
-            if solver == "gmres":
-                kwargs["restart"] = opts["gmresRestart"]
-            nl = len(bs)
-            B, sig, X0 = cls._pad_lanes(B, sig, X0, bs[0])
-            res = _first_lanes(cls._batched(
-                lambda o, Bl, s, X0l, red: fn(o, Bl, s, x0s=X0l, reduce=red,
-                                             **kwargs),
-                op, B, sig, X0, bs[0]), nl)
-        else:
-            raise ValueError(
-                f"unknown linearSolver {solver!r}; available: minres, gmres "
-                f"(alias gcrotmk), exact (alias pardiso)")
-        cls._account(opts, report, solver, res, len(bs))
-        for k, ok in enumerate(res.converged):
-            if not ok:
-                msg = (f"Batched solver {solver} lane {k} did not converge: "
-                       f"residual {float(res.resnorm[k]):.3e} after "
-                       f"{int(res.iterations[k])} iterations")
-                if opts.get("errorOnNonConvergence", True):
-                    raise RuntimeError(msg)
-                warnings.warn(msg)
-        return [bs[k]._like(x.reshape(bs[k].array.shape))
-                for k, x in enumerate(res.x)]
+            if solver == "exact":
+                outs = ls.solve_exact_batch(op, B, sig, reverseGF=reverseGF)
+                res = ls.SolveResult(torch.stack([o.x for o in outs]),
+                                     np.zeros(len(outs)),
+                                     np.ones(len(outs), int),
+                                     np.ones(len(outs), bool), 0)
+            elif solver in ("minres", "gmres"):
+                fn = ls.minres_batch if solver == "minres" else ls.gmres_batch
+                kwargs = dict(rtol=opts["linear_tol"] * rtol_scale,
+                              atol=opts["linear_atol"] * rtol_scale,
+                              maxiter=opts["linearIter"], reverseGF=reverseGF,
+                              precond=opts.get("preconditioner"))
+                if solver == "gmres":
+                    kwargs["restart"] = opts["gmresRestart"]
+                nl = len(bs)
+                B, sig, X0 = cls._pad_lanes(B, sig, X0, bs[0])
+                res = _first_lanes(cls._batched(
+                    lambda o, Bl, s, X0l, red: fn(o, Bl, s, x0s=X0l,
+                                                 reduce=red, **kwargs),
+                    op, B, sig, X0, bs[0]), nl)
+            else:
+                raise ValueError(
+                    f"unknown linearSolver {solver!r}; available: minres, "
+                    f"gmres (alias gcrotmk), exact (alias pardiso)")
+            cls._account(opts, report, solver, res, len(bs))
+            for k, ok in enumerate(res.converged):
+                if not ok:
+                    msg = (f"Batched solver {solver} lane {k} did not "
+                           f"converge: residual "
+                           f"{float(res.resnorm[k]):.3e} after "
+                           f"{int(res.iterations[k])} iterations")
+                    if opts.get("errorOnNonConvergence", True):
+                        raise RuntimeError(msg)
+                    warnings.warn(msg)
+            return [bs[k]._like(x.reshape(bs[k].array.shape))
+                    for k, x in enumerate(res.x)]
 
 
 def _first_lanes(res, nl: int):

@@ -614,3 +614,100 @@ def test_split_row_block_launches_equal_the_square_rows(dev, nrb, nbpr, B,
         exact = bsr.bsr_matmat_split_plain(h, l_, i, X, acc=torch.float64)
         assert _relerr(Yr, exact) <= _split_tol(nbpr, B)
         assert _relerr(y1, exact[0]) <= _split_tol(nbpr, B)
+
+
+def test_lanczos_timers_are_the_device_extent_of_their_spans(dev):
+    """On the card ``status["timers"]`` are the stream's seconds: each
+    Lanczos phase's seconds are, within 2 % or 1 ms, the time the stream
+    took over the phase as the trace shows it (from the later of the
+    span's start on the host and the end of the work launched before it,
+    to the later of its end and the end of the work launched inside it),
+    give or take 0.1 ms a call: the host's own work between the span's
+    edges and its events, which the trace does not show (the range, the
+    events' creation and record: ~32 µs a call on the card).  One event
+    synchronize resolves them all, after the loop."""
+    import bisect
+    import itertools
+
+    from torch.autograd import DeviceType
+
+    from eigensolvers_tpu_torch import (TorchVector,
+                                        inexactLanczosDiagonalization)
+    from eigensolvers_tpu_torch.ops.operators import DenseOperator
+
+    n = 3000
+    rng = np.random.default_rng(0)
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    H = DenseOperator((q * np.linspace(1.0, 10.0, n)) @ q.T, device=dev)
+    g, _ = np.linalg.qr(rng.standard_normal((n, 3)))
+    opts = {"linearSystemArgs": {"linear_tol": 1e-4, "linearIter": 500,
+                                 "preconditioner": "jacobi"}}
+    vs = [TorchVector(g[:, i], opts, device=dev) for i in range(3)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, _, st = inexactLanczosDiagonalization(H, vs, 0.5, 6, 3, 1e-9,
+                                                 writeOut=False)
+    calls, ops, phases, syncs = {}, [], [], 0
+    for e in prof.profiler.kineto_results.events():
+        s = e.start_ns()
+        if e.device_type() == DeviceType.CPU:
+            if e.linked_correlation_id():
+                calls[e.correlation_id()] = s
+            if e.name().startswith("es.lanczos."):
+                phases.append((s, s + e.duration_ns(), e.name()))
+            syncs += e.name() == "cudaEventSynchronize"
+        elif e.device_type() == DeviceType.CUDA \
+                and not e.is_user_annotation():
+            ops.append((s + e.duration_ns(), e.correlation_id()))
+    launched = sorted((calls[c], end) for end, c in ops if c in calls)
+    at = [t for t, _ in launched]
+    done = list(itertools.accumulate((end for _, end in launched), max))
+
+    def ready(t):
+        i = bisect.bisect_left(at, t) - 1
+        return max(t, done[i]) if i >= 0 else t
+
+
+    assert syncs == 1 and set(st["timers"]) >= {"solve", "orthogonalize",
+                                                 "extend_subspace",
+                                                 "diagonalize"}
+    for name, t in st["timers"].items():
+        mine = [(s, e) for s, e, p in phases if p == f"es.lanczos.{name}"]
+        assert len(mine) == t["calls"]
+        extent = sum(ready(e) - ready(s) for s, e in mine) / 1e9
+        slack = max(0.02 * extent, 1e-3) + 1e-4 * t["calls"]
+        assert abs(t["seconds"] - extent) <= slack, \
+            (name, t["calls"], t["seconds"], extent)
+
+
+def test_phase_timer_times_the_stream(dev):
+    """A phase that only enqueues work reads the work's device time, not
+    the host's enqueue: four f64 GEMMs of 4096 (~9 ms on an H100) against
+    an event pair around the same launches."""
+    import time
+
+    from eigensolvers_tpu_torch.utils.profiling import PhaseTimer
+
+    a = torch.randn(4096, 4096, dtype=torch.float64, device=dev)
+
+    def gemms():
+        for _ in range(4):
+            a @ a
+
+    gemms()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    gemms()
+    end.record()
+    end.synchronize()
+    ref = start.elapsed_time(end) / 1e3
+    timer = PhaseTimer("es.test", dev)
+    host = time.perf_counter()
+    with timer.phase("gemm"):
+        gemms()
+    host = time.perf_counter() - host
+    got = timer.summary()["gemm"]
+    assert got["calls"] == 1 and got["seconds"] > 5 * host
+    assert abs(got["seconds"] - ref) <= 0.1 * ref, (got, ref, host)
