@@ -60,6 +60,11 @@ Phases (any failure raises and the script exits non-zero):
      ``torch.profiler``;
    - (g) bench.py's FEAST window task (n = 2048, dense, f32, cuBLAS) with
      the bench's own 1e-4 oracle;
+   - (h0) the sum-of-products contraction kernel
+     (``csrc/sop_contract.cu``) at the benchmark cell's shapes (n = 17^6
+     in f64, modes 0, 3 and 5, 14 terms on one lane and 4 on three): its
+     fan-out, middle and fan-in against the plain version, timed beside
+     their byte bound;
    - (h) the CH3CN 6-mode cut (``ch3cn_operator(N=14, nModesCut=6)``,
      n = 7,529,536): the grouped sum-of-products apply in f64 and f32,
      fused at 256 and unfused, timed and held against a numpy apply of the
@@ -163,7 +168,8 @@ try:
     from eigensolvers_tpu_torch.io import fastwriter
     from eigensolvers_tpu_torch.models.molecules import ch3cn_operator
     from eigensolvers_tpu_torch.models.synthetic import known_spectrum_matrix
-    from eigensolvers_tpu_torch.ops import kernels, sparse as bsr
+    from eigensolvers_tpu_torch.ops import kernels, operators as sop_ops
+    from eigensolvers_tpu_torch.ops import sparse as bsr
     from eigensolvers_tpu_torch.ops.linear_solvers import gmres_splitc_batch
     from eigensolvers_tpu_torch.ops.operators import DenseOperator
     from eigensolvers_tpu_torch.parallel import (ShardedVector,
@@ -191,7 +197,7 @@ try:
     # the slice's operator (n = 262,144; nbpr = 9), the card's rates, the
     # timing and the bound, shared with tools/bench_spmm.py
     from eigensolvers_tpu_torch.tools.yardstick import (
-        B_IN, BANDWIDTH, M_OUT, PEAK_FLOPS, SIGNATURE_TOL, SPLIT_TOL,
+        B_IN, BANDWIDTH, HBM_BPS, M_OUT, PEAK_FLOPS, SIGNATURE_TOL, SPLIT_TOL,
         SPLIT_TOL_LONG, X_RANGE, bound, device_ms, host_us, signature,
         slice_factors, sparse_bsr, split_tol, time_ms)
 except ImportError as e:
@@ -525,6 +531,68 @@ def np_sop_apply(groups, id_coeff, dims, x, dtype):
                                xb.reshape(S, pre, dims[mode], post))
         y = y + xb.reshape((S,) + tuple(dims)).sum(axis=0)
     return y.reshape(-1)
+
+
+def sop_kernel_roles(dev):
+    """Run (h0): the three roles of the sum-of-products contraction kernel
+    (``csrc/sop_contract.cu``) at the benchmark cell's shapes: n = 17^6 in
+    f64 viewed about modes 0 (pre = 1), 3 and 5 (post = 1), 14 terms on one
+    lane and 4 on three.  Each is held to ``sop_contract_plain`` (f64
+    roundoff: 1e-12 of max |y|) and timed in turns (plain, kernel, kernel,
+    plain; CUDA-event medians, 10 kernel runs, 3 plain) beside its bound:
+    each input read once and each output written once at the HBM rate.
+    Returns the results by (role, lanes, terms, mode)."""
+    from eigensolvers_tpu_torch.ops import operators as sop
+    N, k = 17, 6
+    n = N ** k
+    g = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    for m, S in ((1, 14), (3, 4)):
+        F = torch.randn((S, N, N), generator=g, device=dev,
+                        dtype=torch.float64) / N
+        x = torch.randn((m, n), generator=g, device=dev, dtype=torch.float64)
+        Z = torch.randn((S, m, n), generator=g, device=dev,
+                        dtype=torch.float64)
+        y = torch.randn_like(x)
+        for mode in (0, 3, 5):
+            pre, post = N ** mode, N ** (k - 1 - mode)
+            for role, passes in (("fan-out", S + 1), ("middle", 2 * S),
+                                 ("fan-in", S + 2)):
+                def call(fn, Zc=Z, yc=y):
+                    zs = [Zc[s] for s in range(S)]
+                    if role == "fan-out":
+                        fn(F, [x] * S, zs, pre, post)
+                    elif role == "middle":
+                        fn(F, zs, zs, pre, post)
+                    else:
+                        fn(F, zs, [yc], pre, post, True, True)
+                    return Zc if role != "fan-in" else yc
+                got = call(sop.sop_contract, Z.clone(), y.clone())
+                want = call(sop.sop_contract_plain, Z.clone(), y.clone())
+                err = relerr(got, want)
+                del got, want
+                require(np.isfinite(err) and err <= 1e-12,
+                        f"(h0) sop_contract {role} error {err:.3e}")
+                p1 = time_ms(lambda: call(sop.sop_contract_plain), reps=3,
+                             warmup=1)
+                k1 = time_ms(lambda: call(sop.sop_contract), reps=10)
+                k2 = time_ms(lambda: call(sop.sop_contract), reps=10)
+                p2 = time_ms(lambda: call(sop.sop_contract_plain), reps=3,
+                             warmup=1)
+                ms, plain_ms = min(k1, k2), min(p1, p2)
+                bound_ms = passes * m * n * 8 / HBM_BPS * 1e3
+                out[(role, m, S, mode)] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    max_rel_err=err)
+                print(f"[sop kernel] {role} m={m} S={S} mode {mode} (pre "
+                      f"{pre}, post {post}): rel err {err:.2e}; kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{bound_ms:.4f} ms ({passes} passes of {m} x {n} f64 "
+                      f"at {HBM_BPS / 1e12:.2f} TB/s; {bound_ms / ms:.0%} of "
+                      f"it)", flush=True)
+        del F, x, Z, y
+    torch.cuda.empty_cache()
+    return out
 
 
 def kernel_names(fn):
@@ -1977,6 +2045,12 @@ def main():
         check_counts(tag, counts, {})
     walls[tag] = wall
 
+    # (h0): the contraction kernel of the grouped apply at the benchmark
+    # cell's shapes
+    t0 = time.perf_counter()
+    sop_roles = sop_kernel_roles(dev)
+    print(f"[sop kernel] (h0) {time.perf_counter() - t0:.1f} s", flush=True)
+
     # (h): the CH3CN 6-mode cut of bench_sop: the grouped apply in f64 and
     # f32, fused at 256 and not, against a numpy apply of the same groups
     t0 = time.perf_counter()
@@ -2048,10 +2122,13 @@ def main():
     report = {}
     hopts = {"linearSystemArgs": dict(CH3CN_LINEAR, report=report)}
     tag = "(h) CH3CN Lanczos"
+    sop_ops.reset_launch_counts()
     (ev, Y, status), wall, counts, unconv = run(
         inexactLanczosDiagonalization, lop,
         [TorchVector(torch.as_tensor(g, device=dev), hopts) for g in G],
         sig_h, writeOut=False, **CH3CN_LANCZOS)
+    sop_launches = sop_ops.launches["sop_contract"]
+    require(sop_launches > 0, f"{tag}: no sop_contract launch")
     ev = np.asarray(ev)
     picks = np.argsort(ev)[:len(G)]
     ress = []
@@ -2071,8 +2148,9 @@ def main():
           f"{status['isConverged']} after {status['cumIter']} Krylov steps, "
           f"{report['solves']} solves, {report['iterations']} MINRES "
           f"iterations, {report.get('matmats', 0)} lane-stack and "
-          f"{report.get('matvecs', 0)} single applies ({unconv} warnings); "
-          f"wall {wall:.2f} s", flush=True)
+          f"{report.get('matvecs', 0)} single applies ({unconv} warnings), "
+          f"{sop_launches} sop_contract launches; wall {wall:.2f} s",
+          flush=True)
     require(max(ress) <= RES_TOL, f"{tag}: residual {max(ress):.2e}")
     require(Y[0].array.is_cuda, f"{tag}: Ritz vectors left the card")
     check_counts(tag, counts, {})
@@ -2308,6 +2386,15 @@ def main():
                    ("bsr_spmm_split", F_LANES)),
              name=f"bsr_spmm_split m={F_LANES}", launches=split_launches,
              run="(t)"),
+        # the SoP contraction's fan-in at the benchmark cell's shape (one
+        # lane, 14 terms, mode 3), with its launches in (h)
+        dict(name="sop_contract", route="cuda",
+             source=src + "sop_contract.cu",
+             replaces="none (the JAX package left the SoP apply to XLA)",
+             launches=sop_launches, run="(h)", bound_by="bytes",
+             share=(sop_roles[("fan-in", 1, 14, 3)]["bound_ms"]
+                    / sop_roles[("fan-in", 1, 14, 3)]["ms"]),
+             **sop_roles[("fan-in", 1, 14, 3)]),
     ]}
     print(json.dumps(line))
     print(smi)

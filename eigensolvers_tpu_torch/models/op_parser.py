@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.operators import (GroupedSoPOperator, SumOfProductOperator,
-                             fuse_sop_terms, regroup_sop_terms)
+                             fuse_parts, fuse_sop_terms, regroup_sop_terms)
 from ..utils.profiling import spanned
 from ..utils.units import unit2au
 from .bases import BasisBase, Electronic
@@ -224,9 +224,12 @@ def build_sop_operator(spec: OpSpec, bases: Sequence[BasisBase],
     ``fuse`` (a target dimension, e.g. 256) coarsens the mode grid by
     Kronecker-fusing consecutive modes into TPU-tile-sized super-modes
     before grouping (see
-    :func:`~eigensolvers_tpu_torch.ops.operators.fuse_sop_terms`).  Leave
-    unset for tensor-network backends, whose site dimensions must stay
-    physical.  ``device`` places the factors (default: the card).  The
+    :func:`~eigensolvers_tpu_torch.ops.operators.fuse_sop_terms`); the
+    grouped operator keeps the physical factors of its groups that span
+    several super-modes, and applies them mode by mode (see
+    :class:`~eigensolvers_tpu_torch.ops.operators.GroupedSoPOperator`).
+    Leave unset for tensor-network backends, whose site dimensions must
+    stay physical.  ``device`` places the factors (default: the card).  The
     span ``es.build`` times it, the uploads to the card included (one
     synchronize of the card at the end)."""
     if len(bases) != spec.nModes:
@@ -247,7 +250,7 @@ def build_sop_operator(spec: OpSpec, bases: Sequence[BasisBase],
         term_list = [(c, {d: np.asarray(m, dtype=dtype)
                           for d, m in facs.items()})
                      for c, facs in term_list]
-    elif fuse:
+    elif fuse and not group_by_support:
         dims, term_list, _ = fuse_sop_terms(dims, term_list, target=fuse)
         term_list = [(c, {d: np.asarray(m, dtype=dtype)
                           for d, m in facs.items()})
@@ -255,7 +258,7 @@ def build_sop_operator(spec: OpSpec, bases: Sequence[BasisBase],
     if group_by_support:
         op = GroupedSoPOperator.from_terms(
             nDim=len(dims), dims=dims, terms=term_list, dtype=dtype,
-            device=device)
+            device=device, parts=fuse_parts(dims, fuse) if fuse else None)
     else:
         op = SumOfProductOperator.from_terms(
             nDim=len(dims), dims=dims, terms=term_list, dtype=dtype,

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "eigensolvers_tpu_torch"
@@ -60,6 +62,21 @@ def build(name: str, src=None) -> Path:
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)       # atomic: concurrent builders never see a stub
     return lib
+
+
+def launch(fn, device, *args):
+    """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
+    stream (its raw handle), with ``device`` the current device, where a
+    launch goes; returns the launch's CUDA error code.  The raw handle and
+    a check of the current device skip the stream object and the device
+    context that ``torch.cuda.current_stream()`` and a ``torch.cuda.device``
+    block build on every launch: host time that a short row-block launch
+    otherwise waits on."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 _P = ctypes.c_void_p
@@ -113,8 +130,27 @@ def bsr_spmm_split_library() -> ctypes.CDLL:
     return load_bsr_spmm_split()
 
 
+_ADDRS = ctypes.POINTER(ctypes.c_longlong)
+_L = ctypes.c_longlong
+_CONTRACT = [_P, _ADDRS, _ADDRS, _I, _I, _L, _L, _I, _L, _I, _I, _P]
+
+
+def load_sop_contract(src=None) -> ctypes.CDLL:
+    """Build and load ``csrc/sop_contract.cu``, or another version of it
+    (``src``): for timing versions side by side."""
+    return _load("sop_contract", {"sop_contract_f32": _CONTRACT,
+                                  "sop_contract_f64": _CONTRACT}, src)
+
+
+@functools.cache
+def sop_contract_library() -> ctypes.CDLL:
+    """The stacked-factor mode contraction of the grouped sum-of-products
+    apply in f32 and f64 (``csrc/sop_contract.cu``), built on first call."""
+    return load_sop_contract()
+
+
 #: Every kernel library, for building them all at once.
-LIBRARIES = (bsr_spmm_library, bsr_spmm_split_library)
+LIBRARIES = (bsr_spmm_library, bsr_spmm_split_library, sop_contract_library)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -9,7 +9,9 @@ buffers, so ``.to(device)`` moves them and ``state_dict()`` saves them.
 * :class:`DiagonalOperator` — diagonal matrix; matvec is elementwise.
 * :class:`SumOfProductOperator`, :class:`GroupedSoPOperator` —
   H = Σ_s c_s ⊗_d A^{(d,s)} (the ``.op`` molecule models); matvec is a
-  sequence of mode-wise batched contractions, never the full matrix.
+  sequence of mode-wise contractions, never the full matrix (the grouped
+  operator's narrow modes through the hand-written CUDA kernel
+  ``csrc/sop_contract.cu``, :func:`sop_contract`).
 * :class:`CallableOperator` — a matvec callable with a shape (the analogue
   of a scipy ``LinearOperator``, which ``as_operator`` wraps in one).
 * :class:`PaddedOperator` — an operator zero-embedded into a larger space.
@@ -31,13 +33,17 @@ span ``es.apply`` and is counted by its lanes and type as well
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import functools
+import itertools
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..utils.profiling import count, span
+from .kernels import check, launch, sop_contract_library
 
 PRECISIONS = ("default", "high", "highest")
 
@@ -259,13 +265,206 @@ def _apply_terms(factor_batch, modes, xt, dims):
     return xb.reshape((S,) + tuple(dims)).sum(dim=0)
 
 
-def _factor_diagonals(factor_batch):
-    """sum_s ⊗_d diag(f_d[s]) as one (prod n_d,) vector, never H itself."""
+def _factor_diagonals(factor_batch, coeffs=None):
+    """sum_s c_s ⊗_d diag(f_d[s]) as one (prod n_d,) vector, never H
+    itself (c_s = 1 without ``coeffs``)."""
     diags = [torch.diagonal(f, dim1=1, dim2=2) for f in factor_batch]
     acc = diags[0]                                        # (S, n_0)
+    if coeffs is not None:
+        acc = acc * coeffs[:, None]
     for dg in diags[1:]:
         acc = (acc[:, :, None] * dg[:, None, :]).reshape(acc.shape[0], -1)
     return acc.sum(dim=0)
+
+
+#: Launches of the sum-of-products contraction kernel since the last
+#: :func:`reset_launch_counts`: each CUDA call of :func:`sop_contract` adds
+#: one per launch, and nothing else does.
+launches = {"sop_contract": 0}
+
+#: The widest mode the contraction kernel takes (``csrc/sop_contract.cu``
+#: keeps a thread's N sums in registers).  A group whose terms' modes are
+#: all at most this wide is applied by the kernel mode by mode (2N flops
+#: for each 8-byte element read: memory-bound); a wider factor, such as the
+#: presummed 289-wide factor of a fused super-mode, is a cuBLAS GEMM (578
+#: flops an element: compute-bound, where cuBLAS is near the card's peak).
+SOP_MAX_WIDTH = 32
+_SOP_MAX_TERMS = 32                 # terms a launch (the kernel's table)
+_SOP_FACTOR_BYTES = 48 * 1024       # factors a launch keeps in shared memory
+
+
+def reset_launch_counts() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def sop_contract_plain(F, xs, ys, pre, post, sum_out=False, beta=False):
+    """:func:`sop_contract` in plain PyTorch: the route of CPU tensors and
+    the reference the kernel is held to."""
+    N = F.shape[-1]
+    acc = None
+    for s, (f, x) in enumerate(zip(F, xs)):
+        t = torch.einsum("ij,lpjq->lpiq", f, x.reshape(-1, pre, N, post))
+        if sum_out:
+            acc = t if acc is None else acc + t
+        else:
+            ys[s].copy_(t.reshape(ys[s].shape))
+    if sum_out:
+        y = ys[0]
+        if beta:
+            y.add_(acc.reshape(y.shape))
+        else:
+            y.copy_(acc.reshape(y.shape))
+
+
+def sop_terms_per_launch(N: int, itemsize: int) -> int:
+    """How many (N, N) factors one kernel launch holds."""
+    padded = -(-N // 4) * 4
+    return max(1, min(_SOP_MAX_TERMS, _SOP_FACTOR_BYTES
+                      // (N * padded * itemsize)))
+
+
+def sop_contract(F, xs, ys, pre, post, sum_out=False, beta=False):
+    """The stacked-factor mode contraction of the grouped sum-of-products
+    apply, on the (pre, N, post) view of lane stacks (m, pre * N * post):
+    term s maps ``xs[s]`` to ``t_s[l, p, i, q] = sum_j F[s, i, j] xs[s][l,
+    p, j, q]``; then ``ys[s] = t_s`` for every s (a fan-out from one input,
+    or in place, ``xs[s] is ys[s]``), or with ``sum_out`` the term sum
+    ``ys[0] = sum_s t_s``, added to ``ys[0]`` with ``beta``.
+
+    CPU tensors take :func:`sop_contract_plain`.  CUDA tensors launch the
+    kernel (``csrc/sop_contract.cu``; f32 or f64, N <= ``SOP_MAX_WIDTH``,
+    inputs, outputs and factors of one type, contiguous, on one device) or
+    raise; each launch is counted in ``launches``, and the contractions (a
+    term on a lane) as ``es.sop.kernel``."""
+    if F.device.type != "cuda":
+        return sop_contract_plain(F, xs, ys, pre, post, sum_out, beta)
+    S, N = F.shape[0], F.shape[-1]
+    if F.dtype not in (torch.float32, torch.float64) or F.ndim != 3 \
+            or F.shape[1] != N or not F.is_contiguous():
+        raise TypeError(f"sop_contract takes a contiguous f32 or f64 (S, N, "
+                        f"N) factor stack, got {F.dtype} {tuple(F.shape)}")
+    if not 1 <= N <= SOP_MAX_WIDTH:
+        raise ValueError(f"sop_contract takes modes 1..{SOP_MAX_WIDTH} wide, "
+                         f"got {N}")
+    if len(xs) != S or len(ys) != (1 if sum_out else S):
+        raise ValueError(f"{S} factors need {S} inputs and "
+                         f"{1 if sum_out else S} outputs, got {len(xs)} and "
+                         f"{len(ys)}")
+    m, n = xs[0].shape
+    if n != pre * N * post or not 1 <= m <= 65535:
+        raise ValueError(f"lane stack {tuple(xs[0].shape)} is not (m <= "
+                         f"65535, {pre} * {N} * {post})")
+    for t in (*xs, *ys):
+        if t.device != F.device or t.dtype != F.dtype \
+                or tuple(t.shape) != (m, n) or not t.is_contiguous():
+            raise ValueError("sop_contract takes contiguous (m, n) lane "
+                             "stacks of the factors' type and device")
+    lib = sop_contract_library()
+    fn = lib.sop_contract_f64 if F.dtype == torch.float64 \
+        else lib.sop_contract_f32
+    step = sop_terms_per_launch(N, F.element_size())
+    for s0 in range(0, S, step):
+        k = min(step, S - s0)
+        addrs = (ctypes.c_longlong * k)(*(x.data_ptr()
+                                          for x in xs[s0:s0 + k]))
+        outs = ys[:1] if sum_out else ys[s0:s0 + k]
+        oaddrs = (ctypes.c_longlong * len(outs))(*(y.data_ptr()
+                                                   for y in outs))
+        code = launch(fn, F.device, F[s0].data_ptr(), addrs, oaddrs, k, N,
+                      pre, post, m, n, int(sum_out),
+                      int(bool(beta) or s0 > 0))
+        check(lib, code, "sop_contract")
+        launches["sop_contract"] += 1
+    count("es.sop.kernel", calls=S * m)
+
+
+def _cover(sets, highest=False):
+    """One member of each non-empty set, few distinct ones: greedily the
+    member of most sets still open (on a tie the lowest, or with
+    ``highest`` the highest); None for an empty set."""
+    pick = [None] * len(sets)
+    left = [k for k, st in enumerate(sets) if st]
+    while left:
+        tally = collections.Counter(d for k in left for d in sets[k])
+        best = min(tally, key=lambda d: (-tally[d], -d if highest else d))
+        for k in left:
+            if best in sets[k]:
+                pick[k] = best
+        left = [k for k in left if pick[k] is None]
+    return pick
+
+
+def plan_terms(terms):
+    """The kernel's launches for a sum of products ``terms`` [(c, {mode: (N,
+    N) factor})], each term on one mode or more: every term of two modes or
+    more takes a slot (a lane stack of scratch), the fan-outs write the
+    slots from x, one launch per first mode; the middle modes contract the
+    slots in place, one launch per mode and position; the fan-ins sum every
+    term into y, one launch per last mode, the one-mode terms of that mode
+    presummed and read from x.  The last modes are a greedy cover of the
+    terms (few fan-ins: each reads and writes y), the first modes one of
+    the rest; c goes into the first factor applied.  Ties go to the
+    highest last mode and the lowest first one, so that a term whose modes
+    tie is applied in ascending mode order, as the batched route and the
+    JAX package apply it (the same rounding in f32).
+
+    :returns: (slots, [(mode, [factors], [slot, or None for x], [slots, or
+        None for the sum into y])])"""
+    order, slot = [], {}
+    last = _cover([set(f) for _, f in terms], highest=True)
+    first = _cover([set(f) - {d} for (_, f), d in zip(terms, last)])
+    for k, ((_, f), a, b) in enumerate(zip(terms, first, last)):
+        mid = sorted(set(f) - {a, b})
+        order.append(([a] if a is not None else []) + mid + [b])
+        if len(f) > 1:
+            slot[k] = len(slot)
+
+    def factor(k, pos):
+        c, f = terms[k]
+        return f[order[k][pos]] * c if pos == 0 else f[order[k][pos]]
+
+    plan = []
+    for a in sorted({order[k][0] for k in slot}):
+        ks = [k for k in slot if order[k][0] == a]
+        plan.append((a, [factor(k, 0) for k in ks], [None] * len(ks),
+                     [slot[k] for k in ks]))
+    pos = 1
+    while any(len(order[k]) > pos + 1 for k in slot):
+        here = [k for k in slot if len(order[k]) > pos + 1]
+        for d in sorted({order[k][pos] for k in here}):
+            ks = [k for k in here if order[k][pos] == d]
+            plan.append((d, [factor(k, pos) for k in ks],
+                         [slot[k] for k in ks], [slot[k] for k in ks]))
+        pos += 1
+    for b in sorted(set(last)):
+        single = [k for k in range(len(terms))
+                  if k not in slot and last[k] == b]
+        many = [k for k in slot if last[k] == b]
+        facs = [sum(factor(k, 0) for k in single)] if single else []
+        facs += [factor(k, len(order[k]) - 1) for k in many]
+        plan.append((b, facs, [None] * bool(single)
+                     + [slot[k] for k in many], None))
+    return len(slot), plan
+
+
+def _gemm_mode(F, X, Y, pre, post, accumulate):
+    """Y (+)= F applied on one mode of width N of every lane of X ((m, n),
+    viewed as (m * pre, N, post)): one cuBLAS GEMM, in place in Y."""
+    mp, N = X.shape[0] * pre, F.shape[0]
+    require_true_fp32(F)
+    if post == 1:
+        x2, y2 = X.view(mp, N), Y.view(mp, N)
+        if accumulate:
+            y2.addmm_(x2, F.T)
+        else:
+            torch.mm(x2, F.T, out=y2)
+        return
+    x3, y3, Fe = X.view(mp, N, post), Y.view(mp, N, post), F.expand(mp, N, N)
+    if accumulate:
+        y3.baddbmm_(Fe, x3)
+    else:
+        torch.bmm(Fe, x3, out=y3)
 
 
 class SumOfProductOperator(AbstractOperator):
@@ -395,67 +594,171 @@ class GroupedSoPOperator(AbstractOperator):
     .op models: 2-4 active of 12 modes); applying stacked identity factors
     for the inactive modes (as :class:`SumOfProductOperator` does) wastes
     most of the flops.  Here terms sharing the same active-mode set form
-    one batched group, a matvec contracts only the active modes of each
-    group, and pure-identity terms collapse to one scalar.
+    one group, an apply contracts only the active modes of each group, and
+    pure-identity terms collapse to one scalar.
+
+    A fused operator (``physical``: its modes are Kronecker products of
+    consecutive physical modes) keeps, for a group that spans two fused
+    modes or more, its terms' physical factors (``groups`` builds the fused
+    factors from them on demand): most fused factors are kron(A, I) or
+    kron(I, B), and a term touches two to four physical modes of ~17.
+
+    The apply, planned once at construction, with the lanes of a stack as
+    one batch dimension throughout (``matvec_lanes``), takes per group one
+    of three routes, by what the group holds:
+
+    * every factor real and at most ``SOP_MAX_WIDTH`` wide (physical
+      groups, and the groups of an unfused operator): the kernel's
+      contractions, mode by mode (:func:`plan_terms`, :func:`sop_contract`);
+      its scratch lane stacks are at most as many vectors as the largest
+      group has terms (the (S, n) stack of the batched route), so lanes
+      are taken a few at a time where a group has many terms;
+    * one wider mode (the presummed single-super-mode groups): one cuBLAS
+      GEMM (``es.sop.gemm``), in place in y;
+    * several modes, one wider (or complex factors): the batched
+      contractions of :func:`_apply_terms`, a lane at a time.
+
+    The identity terms' scalar goes into the first GEMM's factor, else
+    into the first fan-in of a kernel group, else y starts as id * x.
 
     ``factors`` (property) materializes the full identity-padded stacked
     form for consumers that need it."""
 
     def __init__(self, dims, groups, id_coeff=0.0, precision="highest",
-                 device=None):
+                 device=None, physical=None):
         """:param groups: list of (modes tuple, [per-active-mode arrays
-        (S_g, n_d, n_d)]); :param id_coeff: summed coefficient of the pure
-        identity terms; :param precision: operator precision name (see
+        (S_g, n_d, n_d)], coefficients folded), or, with ``physical``,
+        (modes, [per physical mode of those modes' parts, arrays (S_g, n,
+        n), identity where a term does not act], coefficients (S_g,));
+        :param id_coeff: summed coefficient of the pure identity terms;
+        :param precision: operator precision name (see
         :func:`resolve_precision`); :param device: where numpy arrays go
-        (default: the card)."""
+        (default: the card); :param physical: (physical dims, parts): the
+        consecutive physical modes of each mode of ``dims``."""
         super().__init__()
         self._dims = tuple(int(d) for d in dims)
-        self._modes = []
-        for gi, (modes, facs) in enumerate(groups):
+        self._modes, self._physical = [], set()
+        if physical is not None:
+            pdims, parts = physical
+            self._pdims = tuple(int(d) for d in pdims)
+            self._parts = [list(p) for p in parts]
+            if [d for p in self._parts for d in p] != list(range(len(pdims)))\
+                    or [int(np.prod([pdims[d] for d in p]))
+                        for p in self._parts] != list(self._dims):
+                raise ValueError(f"parts {parts} of {tuple(pdims)} do not "
+                                 f"fuse to {self._dims}")
+        for gi, (modes, facs, *coeffs) in enumerate(groups):
             self._modes.append(tuple(int(m) for m in modes))
             for j, f in enumerate(facs):
                 self.register_buffer(f"g{gi}f{j}", as_tensor(f, device))
+            if coeffs:
+                if physical is None:
+                    raise ValueError("a group of physical factors needs "
+                                     "physical=(dims, parts)")
+                self._physical.add(gi)
+                self.register_buffer(f"g{gi}c", as_tensor(coeffs[0], device))
         if device is None and self._modes:
             device = self.g0f0.device
         self.register_buffer("id_coeff", as_tensor(id_coeff, device))
         self.precision = resolve_precision(precision)
+        self._plan()
 
     @classmethod
-    def from_terms(cls, nDim: int, dims, terms, dtype=None, device=None):
-        """Same term format as :meth:`SumOfProductOperator.from_terms`."""
+    def from_terms(cls, nDim: int, dims, terms, dtype=None, device=None,
+                   parts=None):
+        """Same term format as :meth:`SumOfProductOperator.from_terms`.
+
+        ``parts`` (consecutive runs of the modes of ``dims``, e.g.
+        :func:`fuse_parts`) fuses each run into one mode, as
+        :func:`fuse_sop_terms` does: the operator's dims are the runs'; a
+        group of terms that touches one run is presummed into one fused
+        factor, and one that touches several keeps its physical factors
+        when they are all at most ``SOP_MAX_WIDTH`` wide."""
         dtype = dtype or np.float64
+        owner = {d: d for d in range(nDim)} if parts is None else \
+            {d: i for i, p in enumerate(parts) for d in p}
         by_support = {}
         id_coeff = 0.0
         for coeff, facs in terms:
-            modes = tuple(sorted(facs.keys()))
+            modes = tuple(sorted({owner[d] for d in facs}))
             if not modes:
                 id_coeff += coeff
                 continue
             by_support.setdefault(modes, []).append((coeff, facs))
         groups = []
         for modes, group_terms in sorted(by_support.items()):
-            stacked = []
-            for j, d in enumerate(modes):
-                mats = []
-                for coeff, facs in group_terms:
-                    m = np.asarray(facs[d], dtype=dtype)
-                    if j == 0:
-                        m = m * coeff
-                    mats.append(m)
-                stacked.append(np.stack(mats))
-            if len(modes) == 1:
-                # single-mode group: Σ_s c_s A_s is ONE matrix — presumming
-                # cuts the flops and the (S, n) intermediate by S
-                stacked = [stacked[0].sum(axis=0, keepdims=True)]
-            groups.append((modes, stacked))
+            if parts is None:
+                groups.append(cls._stacked(modes, group_terms, dtype))
+                continue
+            pmodes = [d for mo in modes for d in parts[mo]]
+            if len(modes) > 1 and all(dims[d] <= SOP_MAX_WIDTH
+                                      for d in pmodes):
+                groups.append((modes, [np.stack([
+                    np.asarray(facs[d], dtype=dtype) if d in facs
+                    else np.eye(dims[d], dtype=dtype)
+                    for _, facs in group_terms]) for d in pmodes],
+                    np.asarray([c for c, _ in group_terms], dtype=dtype)))
+                continue
+            fused = [(c, {d: np.asarray(m, dtype=dtype)
+                          for d, m in facs.items()})
+                     for c, facs in regroup_sop_terms(dims, group_terms,
+                                                      parts)[1]]
+            groups.append(cls._stacked(modes, fused, dtype))
+        physical = None
+        if parts is not None:
+            physical = (dims, parts)
+            dims = [int(np.prod([dims[d] for d in p])) for p in parts]
         return cls(dims, groups, id_coeff=np.asarray(id_coeff, dtype),
-                   device=device)
+                   device=device, physical=physical)
+
+    @staticmethod
+    def _stacked(modes, group_terms, dtype):
+        """A group's (modes, stacked factors), the coefficient in the first
+        mode's; a single-mode group presummed."""
+        stacked = []
+        for j, d in enumerate(modes):
+            mats = []
+            for coeff, facs in group_terms:
+                m = np.asarray(facs[d], dtype=dtype)
+                if j == 0:
+                    m = m * coeff
+                mats.append(m)
+            stacked.append(np.stack(mats))
+        if len(modes) == 1:
+            # single-mode group: Σ_s c_s A_s is ONE matrix — presumming
+            # cuts the flops and the (S, n) intermediate by S
+            stacked = [stacked[0].sum(axis=0, keepdims=True)]
+        return modes, stacked
+
+    def _stacks(self, gi):
+        n = len(self._modes[gi]) if gi not in self._physical else \
+            sum(len(self._parts[m]) for m in self._modes[gi])
+        return [getattr(self, f"g{gi}f{j}") for j in range(n)]
 
     @property
     def groups(self):
-        return [(modes, [getattr(self, f"g{gi}f{j}")
-                         for j in range(len(modes))])
-                for gi, modes in enumerate(self._modes)]
+        """(modes, [per-mode stacked factors (S_g, n_d, n_d)]) per group,
+        coefficients folded; a physical group's fused factors are built
+        here, as :func:`fuse_sop_terms` builds them."""
+        out = []
+        for gi, modes in enumerate(self._modes):
+            facs = self._stacks(gi)
+            if gi in self._physical:
+                stacks = [f.cpu().numpy() for f in facs]
+                coeffs = getattr(self, f"g{gi}c").cpu().numpy()
+                fused, k = [], 0
+                for j, mode in enumerate(modes):
+                    part = stacks[k:k + len(self._parts[mode])]
+                    k += len(part)
+                    mats = [functools.reduce(np.kron, [f[s] for f in part])
+                            for s in range(len(coeffs))]
+                    if j == 0:
+                        mats = [m * c for m, c in zip(mats, coeffs)]
+                    fused.append(as_tensor(np.stack(mats),
+                                           self.id_coeff.device))
+                facs = fused
+            out.append((modes, facs))
+        return out
 
     @property
     def dims(self):
@@ -467,7 +770,8 @@ class GroupedSoPOperator(AbstractOperator):
 
     @property
     def nSum(self):
-        return sum(facs[0].shape[0] for _, facs in self.groups) + 1
+        return sum(getattr(self, f"g{gi}f0").shape[0]
+                   for gi in range(len(self._modes))) + 1
 
     @property
     def shape(self):
@@ -478,7 +782,8 @@ class GroupedSoPOperator(AbstractOperator):
     def dtype(self):
         return functools.reduce(
             torch.promote_types,
-            [f.dtype for _, facs in self.groups for f in facs],
+            [f.dtype for gi in range(len(self._modes))
+             for f in self._stacks(gi)],
             self.id_coeff.dtype)
 
     @property
@@ -486,10 +791,11 @@ class GroupedSoPOperator(AbstractOperator):
         """Full identity-padded stacked factors; the pure-identity
         coefficient becomes one extra term."""
         out = []
+        groups = self.groups
         for d, n in enumerate(self._dims):
             eye = np.eye(n)
             mats = []
-            for modes, facs in self.groups:
+            for modes, facs in groups:
                 S_g = facs[0].shape[0]
                 if d in modes:
                     mats.append(facs[modes.index(d)].cpu().numpy())
@@ -503,27 +809,136 @@ class GroupedSoPOperator(AbstractOperator):
                                        device=self.id_coeff.device))
         return out
 
+    def _plan(self):
+        """The apply's steps (class docstring), from what the groups hold:
+        ``self._steps`` and the buffers they read (``p<i>``)."""
+        real = not self.dtype.is_complex
+        device = self.id_coeff.device
+        kernel, gemm, batched = [], [], []
+        idc = float(self.id_coeff)
+        for gi, modes in enumerate(self._modes):
+            facs = self._stacks(gi)
+            if gi in self._physical:
+                dims = self._pdims
+                pm = [d for m in modes for d in self._parts[m]]
+                coeffs = getattr(self, f"g{gi}c").tolist()
+            else:
+                dims, pm, coeffs = self._dims, modes, [1.0] * len(facs[0])
+            if gi not in self._physical and not (real and all(
+                    f.shape[-1] <= SOP_MAX_WIDTH for f in facs)):
+                if len(modes) == 1:
+                    gemm.append((modes[0], facs[0].sum(dim=0)))
+                else:
+                    batched.append(gi)
+                continue
+            facs = [f.cpu() for f in facs]
+            eyes = [torch.eye(f.shape[-1], dtype=f.dtype) for f in facs]
+            terms = []
+            for s, c in enumerate(coeffs):
+                act = {d: f[s] for d, f, e in zip(pm, facs, eyes)
+                       if not torch.equal(f[s], e)}
+                if act:
+                    terms.append((c, act))
+                else:                      # c times the identity
+                    idc += c
+            if terms:
+                kernel.append((dims, terms))
+        self._budget = max((getattr(self, f"g{gi}f0").shape[0]
+                            for gi in range(len(self._modes))), default=0)
+        names = itertools.count()
+
+        def buffer(t):
+            name = f"p{next(names)}"
+            self.register_buffer(name, t.to(device).contiguous())
+            return name
+
+        def view(dims, mode):
+            return (int(np.prod(dims[:mode])), int(np.prod(dims[mode + 1:])))
+
+        steps = []
+        for k, (mode, F) in enumerate(gemm):
+            if k == 0 and idc:
+                F = F + idc * torch.eye(F.shape[0], dtype=F.dtype,
+                                        device=F.device)
+            steps.append(("gemm", *view(self._dims, mode), buffer(F), k > 0))
+        for k, (dims, terms) in enumerate(kernel):
+            if k == 0 and not gemm and idc:
+                tally = collections.Counter(d for _, f in terms for d in f)
+                d = min(tally, key=lambda d: (-tally[d], d))
+                terms = terms + [(idc, {d: torch.eye(dims[d],
+                                                     dtype=self.dtype)})]
+            slots, plan = plan_terms(terms)
+            steps.append(("kernel", slots, [
+                (*view(dims, mode), buffer(torch.stack(facs)), srcs, dsts)
+                for mode, facs, srcs, dsts in plan], not gemm and k == 0))
+        steps += [("batched", gi) for gi in batched]
+        self._steps, self._id_first = steps, not (gemm or kernel)
+
+    def _apply_lanes(self, X):
+        """The planned apply to a lane stack X (m, n), real."""
+        dt = torch.promote_types(self.dtype, X.dtype)
+        X = X.to(dt).contiguous()
+        m, n = X.shape
+        Y = torch.empty_like(X)
+        if self._id_first:
+            torch.mul(X, self.id_coeff.to(dt), out=Y)
+        for step in self._steps:
+            if step[0] == "gemm":
+                _, pre, post, name, accumulate = step
+                _gemm_mode(getattr(self, name).to(dt), X, Y, pre, post,
+                           accumulate)
+                count("es.sop.gemm", calls=m)
+            elif step[0] == "kernel":
+                _, slots, plan, writes = step
+                lanes = m if not slots else \
+                    max(1, min(m, self._budget // slots))
+                Z = X.new_empty((slots, lanes, n))
+                for l0 in range(0, m, lanes):
+                    k = min(lanes, m - l0)
+                    Xc, Yc = X[l0:l0 + k], Y[l0:l0 + k]
+                    first = writes
+                    for pre, post, name, srcs, dsts in plan:
+                        ins = [Xc if s is None else Z[s, :k] for s in srcs]
+                        outs = [Yc] if dsts is None else \
+                            [Z[s, :k] for s in dsts]
+                        sop_contract(getattr(self, name).to(dt), ins, outs,
+                                     pre, post, sum_out=dsts is None,
+                                     beta=not (first and dsts is None))
+                        first = first and dsts is not None
+            else:
+                modes, facs = self._modes[step[1]], self._stacks(step[1])
+                for l in range(m):
+                    Y[l] += _apply_terms(facs, modes, X[l].view(self._dims),
+                                         self._dims).reshape(-1)
+        return Y
+
+    def matvec_lanes(self, X):
+        """The apply to every lane of X (m, n) at once (see the class
+        docstring); a complex stack as its real and imaginary lanes."""
+        if X.is_complex() and not self.dtype.is_complex:
+            m = X.shape[0]
+            Y = self._apply_lanes(torch.cat([X.real, X.imag]))
+            return torch.complex(Y[:m], Y[m:])
+        return self._apply_lanes(X)
+
     def matvec(self, x):
-        """Per group: batched mode-wise contractions of its active modes,
-        trailing term sum; plus the identity terms' scalar."""
-        dims = self._dims
-        xt = x.reshape(dims)
-        y = self.id_coeff * xt
-        for modes, facs in self.groups:
-            y = y + _apply_terms(facs, modes, xt, dims)
-        return y.reshape(x.shape)
+        return self.matvec_lanes(x.reshape(1, -1)).reshape(x.shape)
 
     def diagonal(self):
         """Per group: the Kronecker product of the active-mode factor
         diagonals, broadcast over the inactive modes; identity terms add
         id_coeff."""
-        dims = self._dims
-        out = torch.full(dims, float(self.id_coeff), dtype=self.dtype,
-                         device=self.id_coeff.device)
-        for modes, facs in self.groups:
+        out = torch.full((self.shape[0],), float(self.id_coeff),
+                         dtype=self.dtype, device=self.id_coeff.device)
+        for gi, modes in enumerate(self._modes):
+            facs, coeffs, dims = self._stacks(gi), None, self._dims
+            if gi in self._physical:
+                coeffs, dims = getattr(self, f"g{gi}c"), self._pdims
+                modes = [d for m in modes for d in self._parts[m]]
             shape = [dims[d] if d in modes else 1 for d in range(len(dims))]
-            out = out + _factor_diagonals(facs).reshape(shape)
-        return out.reshape(-1)
+            out = (out.view(dims) + _factor_diagonals(facs, coeffs)
+                   .reshape(shape)).reshape(-1)
+        return out
 
     def to_dense(self):
         n = self.shape[0]
@@ -539,6 +954,24 @@ class GroupedSoPOperator(AbstractOperator):
                         for d, nd in enumerate(self._dims)]
                 out = out + functools.reduce(np.kron, mats)
         return torch.as_tensor(out, device=self.id_coeff.device)
+
+
+def fuse_parts(dims, target: int = 256):
+    """The consecutive runs of modes that :func:`fuse_sop_terms` fuses:
+    each run's dimension at most ``max(target, its largest mode)``."""
+    parts: List[List[int]] = []
+    cur: List[int] = []
+    prod = 1
+    for d, nd in enumerate(dims):
+        if cur and prod * int(nd) > target:
+            parts.append(cur)
+            cur, prod = [d], int(nd)
+        else:
+            cur.append(d)
+            prod *= int(nd)
+    if cur:
+        parts.append(cur)
+    return parts
 
 
 def fuse_sop_terms(dims, terms, target: int = 256):
@@ -560,18 +993,7 @@ def fuse_sop_terms(dims, terms, target: int = 256):
     :returns: (fused_dims, fused_terms, partition) — partition is the list
         of original-mode index groups, for callers that need to map back
     """
-    parts: List[List[int]] = []
-    cur: List[int] = []
-    prod = 1
-    for d, nd in enumerate(dims):
-        if cur and prod * int(nd) > target:
-            parts.append(cur)
-            cur, prod = [d], int(nd)
-        else:
-            cur.append(d)
-            prod *= int(nd)
-    if cur:
-        parts.append(cur)
+    parts = fuse_parts(dims, target)
     fused_dims, fused_terms = regroup_sop_terms(dims, terms, parts)
     return fused_dims, fused_terms, parts
 

@@ -55,7 +55,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernels import bsr_spmm_library, bsr_spmm_split_library, check
+from .kernels import bsr_spmm_library, bsr_spmm_split_library, check, launch
 from .operators import AbstractOperator, as_tensor, resolve_precision
 
 #: Kernel launches since the last :func:`reset_launch_counts`, by kernel.
@@ -435,21 +435,6 @@ def _check_launch(blocks, idx, xp, lanes=False, ncb=None):
     return nrb, ncb, nbpr, B
 
 
-def _launch(fn, device, *args):
-    """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
-    stream (its raw handle), with ``device`` the current device, where a
-    launch goes; returns the launch's CUDA error code.  The raw handle and
-    a check of the current device skip the stream object and the device
-    context that ``torch.cuda.current_stream()`` and a ``torch.cuda.device``
-    block build on every launch: host time that a short row-block launch
-    otherwise waits on."""
-    index = device.index
-    if index == torch.cuda.current_device():
-        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    with torch.cuda.device(index):
-        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
-
-
 def _launch_b3(name, dataT, idx, Xp, lanes, ncb=None):
     """Launch B3's kernel (``csrc/bsr_spmm.cu``) on the padded x (ncb*B,)
     or lane stack (m, ncb*B) and count the launch under ``name``."""
@@ -462,7 +447,7 @@ def _launch_b3(name, dataT, idx, Xp, lanes, ncb=None):
     lib = bsr_spmm_library()
     fn = lib.bsr_spmm_f32 if dataT.dtype == torch.float32 else lib.bsr_spmm_f64
     Y = Xp.new_empty((Xp.shape[0], nrb * B) if lanes else (nrb * B,))
-    code = _launch(fn, Xp.device, dataT.data_ptr(), idx.data_ptr(),
+    code = launch(fn, Xp.device, dataT.data_ptr(), idx.data_ptr(),
                    Xp.data_ptr(), Y.data_ptr(), nrb, ncb, nbpr, B,
                    Xp.shape[0] if lanes else 1)
     check(lib, code, name)
@@ -496,7 +481,7 @@ def _launch_split(name, hiT, loT, idx, Xp, lanes, ncb=None):
                         f"{hiT.dtype}, {loT.dtype}, {Xp.dtype}")
     lib = bsr_spmm_split_library()
     Y = Xp.new_empty((Xp.shape[0], nrb * B) if lanes else (nrb * B,))
-    code = _launch(lib.bsr_spmm_split_f32, Xp.device, hiT.data_ptr(),
+    code = launch(lib.bsr_spmm_split_f32, Xp.device, hiT.data_ptr(),
                    loT.data_ptr(), idx.data_ptr(), Xp.data_ptr(),
                    Y.data_ptr(), nrb, ncb, nbpr, B,
                    Xp.shape[0] if lanes else 1)

@@ -107,7 +107,7 @@ def apply_split(lib, hi, lo, idx, X):
     """One square launch of a split kernel version on the lane stack X."""
     nrb, nbpr, B, _ = hi.shape
     Y = torch.empty_like(X)
-    code = bsr._launch(lib.bsr_spmm_split_f32, X.device, hi.data_ptr(),
+    code = kernels.launch(lib.bsr_spmm_split_f32, X.device, hi.data_ptr(),
                        lo.data_ptr(), idx.data_ptr(), X.data_ptr(),
                        Y.data_ptr(), nrb, nrb, nbpr, B, X.shape[0])
     kernels.check(lib, code, "bsr_spmm_split")
@@ -143,7 +143,7 @@ def apply_b1(lib, dataT, idx, x):
                              "row block")
         fn = lib.bsr_spmm_f32 if f32 else lib.bsr_spmm_f64
         dims = (nrb, x.numel() // B, nbpr, B, 1)
-    code = bsr._launch(fn, x.device, dataT.data_ptr(), idx.data_ptr(),
+    code = kernels.launch(fn, x.device, dataT.data_ptr(), idx.data_ptr(),
                        x.data_ptr(), y.data_ptr(), *dims)
     kernels.check(lib, code, "single-vector")
     return y
@@ -156,7 +156,7 @@ def apply(lib, dataT, idx, X):
     fn = lib.bsr_spmm_f32 if dataT.dtype == torch.float32 else lib.bsr_spmm_f64
     Y = torch.empty_like(X)
     dims = (nrb, nrb, nbpr, B) if lib.ncb else (nrb, nbpr, B)
-    code = bsr._launch(fn, X.device, dataT.data_ptr(), idx.data_ptr(),
+    code = kernels.launch(fn, X.device, dataT.data_ptr(), idx.data_ptr(),
                        X.data_ptr(), Y.data_ptr(), *dims, X.shape[0])
     kernels.check(lib, code, "bsr_spmm")
     return Y

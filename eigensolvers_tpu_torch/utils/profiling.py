@@ -38,13 +38,14 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 _REGISTRY: Dict[str, list] = {}
 
 
-def count(name: str, seconds: float = 0.0) -> None:
-    """Add one call of ``name``, and ``seconds``, to the registry."""
+def count(name: str, seconds: float = 0.0, calls: int = 1) -> None:
+    """Add ``calls`` calls of ``name`` (one by default), and ``seconds``,
+    to the registry."""
     c = _REGISTRY.get(name)
     if c is None:
-        _REGISTRY[name] = [1, seconds]
+        _REGISTRY[name] = [calls, seconds]
     else:
-        c[0] += 1
+        c[0] += calls
         c[1] += seconds
 
 

@@ -711,3 +711,117 @@ def test_phase_timer_times_the_stream(dev):
     got = timer.summary()["gemm"]
     assert got["calls"] == 1 and got["seconds"] > 5 * host
     assert abs(got["seconds"] - ref) <= 0.1 * ref, (got, ref, host)
+
+
+# The sum-of-products contraction kernel (csrc/sop_contract.cu) against its
+# plain version, each role: a fan-out from one input, in-place middle
+# contractions, a fan-in summed into y.  (pre, N, post): both tiling modes
+# (post >= 32 direct, post < 32 slab), the pre = 1 and post = 1 edges, N
+# from 9 to 17 and 32 (whose 7 terms take two launches in f64).
+SOP_SHAPES = [(9, 11, 13), (1, 17, 40), (37, 9, 1), (5, 16, 3), (3, 15, 33),
+              (2, 32, 5)]
+
+
+def _sop_inputs(pre, N, post, S, m, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = pre * N * post
+    F = torch.randn((S, N, N), generator=g, device=dev, dtype=dtype)
+    return F, [torch.randn((m, n), generator=g, device=dev, dtype=dtype)
+               for _ in range(S + 1)]
+
+
+@pytest.mark.parametrize("m", [1, 3, 5])
+@pytest.mark.parametrize("role", ["fanout", "middle", "fanin"])
+@pytest.mark.parametrize("pre,N,post", SOP_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_sop_contract_matches_plain(dev, pre, N, post, role, m, dtype, tol):
+    """Each role against the plain einsum in the same type; the bound is
+    summation-order roundoff (N products a term, S terms a sum)."""
+    from eigensolvers_tpu_torch.ops import operators as ops
+    S = 7
+    F, vecs = _sop_inputs(pre, N, post, S, m, dtype, dev)
+    x, zs = vecs[0], vecs[1:]
+    if role == "fanout":
+        args = ([x] * S, [torch.empty_like(x) for _ in range(S)], False)
+    elif role == "middle":
+        args = (zs, zs, False)
+    else:
+        args = (zs, [x], True)
+    ref_in = [t.clone() for t in args[0]]
+    ref_out = [t.clone() for t in args[1]]
+    if role == "middle":
+        ref_out = ref_in
+    ops.reset_launch_counts()
+    ops.sop_contract(F, args[0], args[1], pre, post, sum_out=args[2],
+                     beta=args[2])
+    torch.cuda.synchronize()
+    ops.sop_contract_plain(F, ref_in, ref_out, pre, post, sum_out=args[2],
+                           beta=args[2])
+    assert ops.launches["sop_contract"] == \
+        -(-S // ops.sop_terms_per_launch(N, F.element_size()))
+    for got, want in zip(args[1], ref_out):
+        assert _relerr(got, want) <= tol
+
+
+def test_sop_contract_refuses_what_it_does_not_take(dev):
+    """The wrapper raises on what the kernel does not take, and a launch
+    the library refuses raises through ``check``."""
+    import ctypes
+    from eigensolvers_tpu_torch.ops import kernels, operators as ops
+    F, vecs = _sop_inputs(2, 33, 3, 1, 1, torch.float64, dev)
+    with pytest.raises(ValueError, match="wide"):
+        ops.sop_contract(F, vecs[:1], vecs[1:], 2, 3)
+    F, vecs = _sop_inputs(2, 5, 3, 2, 1, torch.float64, dev)
+    with pytest.raises(ValueError, match="lane stacks"):
+        ops.sop_contract(F, [vecs[0], vecs[1].float()], vecs[:2], 2, 3)
+    with pytest.raises(TypeError):
+        ops.sop_contract(F.to(torch.int64), vecs[:2], vecs[1:], 2, 3)
+    lib = kernels.sop_contract_library()
+    addr = (ctypes.c_longlong * 1)(vecs[0].data_ptr())
+    code = kernels.launch(lib.sop_contract_f64, F.device, F.data_ptr(), addr,
+                          addr, 0, 5, 2, 3, 1, 30, 0, 0)
+    with pytest.raises(RuntimeError, match="sop_contract launch failed"):
+        kernels.check(lib, code, "sop_contract")
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12), (np.float32, 1e-5)])
+def test_ch3cn_lane_apply_and_solve_run_the_sop_kernel(dev, dtype, tol):
+    """A fused CH3CN cut on the card: its physical groups through the kernel,
+    the presummed 36-wide ones as GEMMs, equal to the plain route on the
+    CPU; a short block solve counts the kernel's contractions and no
+    row-by-row apply."""
+    from eigensolvers_tpu_torch import TorchVector, inexactLanczosDiagonalization
+    from eigensolvers_tpu_torch.models.molecules import ch3cn_operator
+    from eigensolvers_tpu_torch.ops import operators as ops
+    from eigensolvers_tpu_torch.utils import profiling
+    kw = dict(N=6, nModesCut=6, fuse=36, dtype=dtype)
+    op, spec, _ = ch3cn_operator(device=dev, **kw)
+    cpu = ch3cn_operator(device="cpu", **kw)[0]
+    assert {s[0] for s in op._steps} == {"gemm", "kernel"}
+    X = torch.randn((3, op.shape[0]), dtype=op.dtype)
+    assert _relerr(op.matvec_lanes(X.to(dev)).cpu(),
+                   cpu.matvec_lanes(X)) <= tol
+    if dtype == np.float32:
+        return
+    n = op.shape[0]
+    G = torch.zeros((3, n), dtype=torch.float64)
+    for row, k in enumerate((0, 6 ** 2, 6 ** 3)):
+        G[row, k] = 1.0
+    G += 1e-3 * torch.randn((3, n), dtype=torch.float64)
+    G = torch.linalg.qr(G.T)[0].T.contiguous().to(dev)
+    zpve = 0.5 * sum(spec.parameters[f"w{i + 1}"] for i in range(6))
+    opts = {"linearSystemArgs": {"linearSolver": "minres", "linearIter": 200,
+                                 "linear_tol": 1e-4,
+                                 "preconditioner": "jacobi"}}
+    ops.reset_launch_counts()
+    before = profiling.snapshot()
+    ev, _, _ = inexactLanczosDiagonalization(
+        op, [TorchVector(g, opts) for g in G], zpve - 0.0023, 4, 2, 1e-8,
+        writeOut=False)
+    counts = profiling.delta(before)
+    assert np.all(np.isfinite(np.asarray(ev)))
+    assert ops.launches["sop_contract"] > 0
+    assert counts["es.sop.kernel"]["calls"] > 0
+    assert counts["es.sop.gemm"]["calls"] > 0
+    assert "es.apply.rowwise" not in counts

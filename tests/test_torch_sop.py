@@ -34,6 +34,7 @@ from eigensolvers_tpu_torch.convert import operator_from_arrays
 from eigensolvers_tpu_torch.models import molecules as tmol
 from eigensolvers_tpu_torch.models import op_parser as tparser
 from eigensolvers_tpu_torch.ops import operators as tops
+from eigensolvers_tpu_torch.utils import profiling
 from test_torch_common import CPU, as_np, torch_vec
 
 DIMS = [3, 2, 3, 3, 3, 5]          # tests/test_sop_operator.py's problem
@@ -204,3 +205,78 @@ def test_sop_constructors_default_to_the_card(monkeypatch):
         tmol.pyrazine4_operator(N=3)
     op = tmol.pyrazine4_operator(N=3, device="cpu")[0]
     assert op.id_coeff.device.type == "cpu"
+
+
+# The grouped apply on its physical modes (the contraction kernel's plan,
+# plain PyTorch on the CPU): the CH3CN cut at N = 5 on 4 modes, fused at 25
+# (pairs of modes: every group is applied mode by mode, a term of modes
+# (0, 2, 3) through a middle contraction, and the (2, 3) factor kron(A, B)
+# with both modes active) and at 128 (modes 0-2 and 3: the presummed
+# 125-wide group is a GEMM), and unfused on 3 modes.
+PHYSICAL = {"fuse25": dict(N=5, nModesCut=4, fuse=25),
+            "fuse128": dict(N=5, nModesCut=4, fuse=128),
+            "unfused3": dict(N=5, nModesCut=3)}
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 3, 6],
+                         ids=["vector", "m1", "m3", "m6"])
+@pytest.mark.parametrize("case", list(PHYSICAL))
+def test_grouped_apply_on_physical_modes(case, lanes):
+    kw = PHYSICAL[case]
+    top, tspec, tbases = tmol.ch3cn_operator(device=CPU, **kw)
+    top = top.to(CPU)                  # nn.Module.to keeps the plan whole
+    jop = jmol.ch3cn_operator(**kw)[0]
+    H = np.asarray(jop.to_dense())
+    _close(top.to_dense(), H)
+    kinds = [s[0] for s in top._steps]
+    launches = [lc for s in top._steps if s[0] == "kernel" for lc in s[2]]
+    assert "kernel" in kinds and "batched" not in kinds
+    assert ("gemm" in kinds) == (case == "fuse128")
+    if case != "unfused3":
+        assert any(srcs == dsts for *_, srcs, dsts in launches)   # middle
+    # .groups and .factors as the fused build gives them, bit for bit
+    if "fuse" in kw:
+        dims = [b.N for b in tbases]
+        terms = [(t.coeff, {d: np.asarray(tparser._factor_matrix(
+            lbl, tbases[d])) for d, lbl in t.factors.items()})
+            for t in tspec.terms]
+        fd, ft, _ = tops.fuse_sop_terms(dims, terms, target=kw["fuse"])
+        old = tops.GroupedSoPOperator.from_terms(len(fd), fd, ft, device=CPU)
+        assert old._physical == set() and len(top._physical) > 0
+        for (mt, ft_), (mo, fo) in zip(top.groups, old.groups):
+            assert mt == mo
+            for a, b in zip(ft_, fo):
+                assert torch.equal(a, b)
+        for a, b in zip(top.factors, old.factors):
+            assert torch.equal(a, b)
+        _close(top.diagonal(), old.diagonal())
+        # the JAX operator converted: dense fused factors, the same answers
+        cop = operator_from_arrays(
+            {"dims": jop.dims, "id_coeff": np.asarray(jop.id_coeff),
+             "groups": [(m, [np.asarray(f) for f in facs])
+                        for m, facs in jop.groups]}, CPU)
+        assert cop._physical == set()
+        for (mc, fc), (mj, fj) in zip(cop.groups, jop.groups):
+            assert mc == tuple(mj)
+            for a, b in zip(fc, fj):
+                np.testing.assert_array_equal(as_np(a), np.asarray(b))
+    rng = np.random.RandomState(3)
+    n = H.shape[0]
+    before = profiling.snapshot()
+    if lanes is None:
+        x = rng.standard_normal(n)
+        got = top.matvec(torch.as_tensor(x))
+        _close(got, jop.matvec(jnp.asarray(x)))
+        want = H @ x
+    else:
+        X = rng.standard_normal((lanes, n))
+        got = top.matvec_lanes(torch.as_tensor(X))
+        want = X @ H.T
+    counts = profiling.delta(before)
+    _close(got, want)
+    assert "es.apply.rowwise" not in counts
+    assert counts.get("es.sop.gemm", {}).get("calls", 0) == \
+        ((lanes or 1) if case == "fuse128" else 0)
+    if lanes and "fuse" in kw:
+        _close(cop.matvec_lanes(torch.as_tensor(X)), want)
+    _close(top.diagonal(), np.diag(H))
