@@ -6,9 +6,13 @@ Each solve starts from guesses drawn from (seed, solve index): the same
 seed gives the same inputs.  The window runs whole solves until
 ``seconds`` have passed; the solve under way then finishes and counts.
 
-A traced run (``trace``) wraps the operator's applies in counting
-``op.apply`` ranges and profiles the second solve whole; it reports the
-cell's per-layer metrics instead of its end-to-end ones.
+Every solve's record holds the port's own counters' gain over it
+(``counts``), and the run's record the counters after set-up; a traced
+run (``trace``) also wraps the operator's applies in counting ``op.apply``
+ranges, profiles the second solve whole, reduces that trace by
+``op.apply`` ranges and by the port's ``es.*`` spans, and reports the
+cell's per-layer metrics, each read from that record, instead of its
+end-to-end ones.
 """
 
 import collections
@@ -22,10 +26,10 @@ import warnings
 import numpy as np
 import torch
 
-from . import guards, spec
-from .entries import merged, solve
+from . import guards, spans, spec
+from .entries import counts, counts_since, merged, solve
 from .judge import judge
-from .tracing import ApplyCounter, profiler, reduce_profile
+from .tracing import ApplyCounter, profiler, reduce_profile, wrapper_shapes
 
 WARMUP_INDEX = 2 ** 32 - 1      # the warm-up's guesses: no timed solve's
 PROFILED = 1                    # the solve that the traced run profiles
@@ -127,6 +131,7 @@ class Cell:
         if self.counter:
             self.counter.count = 0
             self.counter.shapes = [] if prof is not None else None
+        before = counts()
         sync(self.device)
         with warnings.catch_warnings(record=True) as caught, \
                 (prof if prof is not None else contextlib.nullcontext()):
@@ -136,11 +141,13 @@ class Cell:
                                              self.traffic, report)
             sync(self.device)
             wall = time.perf_counter() - t0
+        counted = counts_since(before)
         ev, V = self.fault.alter(ev, V)
         rec = {"wall_s": wall, "converged": converged,
                "ev": ev,
                "V": V.cpu(), "profiled": prof is not None,
                "warnings": [str(w.message)[:200] for w in caught],
+               "counts": counted,
                "port_applies": self.prog.port_applies(
                    self.traffic["entry"], status, report)}
         if self.counter:
@@ -172,12 +179,33 @@ def describe(i, s):
             + (" (profiled)" if s["profiled"] else ""))
 
 
+def describe_counts(i, s):
+    """The port's counts of one solve, beside the wrapper's where it
+    counted."""
+    c = s["counts"]
+
+    def calls(name):
+        return c.get(name, {}).get("calls", 0)
+    wrapper = s.get("shapes") and wrapper_shapes(s["shapes"])
+    return (f"[spans] solve {i}: applies {calls('es.apply')} (wrapper "
+            f"{s.get('applies')}) by shape {spans.program_shapes(c)} "
+            f"(wrapper {wrapper}), row by row {calls('es.apply.rowwise')}, "
+            f"MINRES passes {calls('es.minres.pass')}, host reads "
+            f"{calls('es.read')}, linear solves {calls('es.linear.solve')}"
+            + (" (profiled)" if s["profiled"] else ""))
+
+
 def run(cell_name, seed, seconds, trace, t_start, **kw):
-    """Run ``cell_name`` once and return its result (the last line's
-    object); ``kw`` as :class:`Cell` takes them."""
+    """Run ``cell_name`` once: (its result, the last line's object; its
+    record, what the per-layer metrics read: ``solves``, the solves'
+    records; ``setup_counts``, the port's counters after set-up;
+    ``profile`` and ``spans``, the traced run's profiled solve reduced by
+    ``op.apply`` ranges and by the port's spans, else None).  ``kw`` as
+    :class:`Cell` takes them."""
     cell = Cell(cell_name, **kw)
     device = cell.device
     cell.warm_up(seed)
+    setup_counts = counts()
     if trace:
         with profiler(device):          # the profiler's own first start
             torch.ones(8, device=device).sum()
@@ -210,10 +238,17 @@ def run(cell_name, seed, seconds, trace, t_start, **kw):
     bench = cell.bench
     result = {"correct": False, "attempted": len(solves), "failed": 0,
               "metrics": {}, "device": _device(device, peak)}
+    record = {"solves": solves, "setup_counts": setup_counts,
+              "profile": None, "spans": None}
     if trace:
-        record = {"solves": solves, "profile": None}
+        for i, s in enumerate(solves):
+            log(describe_counts(i, s))
+        log("[spans] set-up " + json.dumps(
+            {k: v for k, v in setup_counts.items()
+             if k in ("es.parse", "es.build")}))
         if prof is not None:
             red = reduce_profile(prof)
+            record["spans"] = spans.reduce_spans(prof)
             del prof
             ps = solves[PROFILED]
             bounds = {}
@@ -232,11 +267,18 @@ def run(cell_name, seed, seconds, trace, t_start, **kw):
                                     window_s=red["wall_s"])
             result["breakdown"] = {"device_ops": red["device_ops"],
                                    "idle_gaps": red["idle_gaps"]}
+            log(spans.line(record["spans"], top=8))
+            for path, sec in record["spans"]["paths"][:16]:
+                log(f"[spans] path {sec:.6f} s  "
+                    f"{' > '.join(path) or spans.NONE}")
         for m in spec.metrics_of(bench, cell_name, "per_layer"):
             value = spec.metric_reader(m["name"])(record)
             if value is not None:
                 result["metrics"][m["name"]] = {"value": value,
                                                 "unit": m["unit"]}
+        log("[per_layer] " + ", ".join(
+            f"{k} {v['value']!r} {v['unit']}"
+            for k, v in result["metrics"].items()))
     else:
         e2e = {"solve_s": sum(s["wall_s"] for s in solves) / len(solves),
                "peak_mem_gib": None if peak is None else peak / GIB,
@@ -255,7 +297,7 @@ def run(cell_name, seed, seconds, trace, t_start, **kw):
     result["correct"] = bool(solves) and failed == 0
     result["checks"] = {k: {"value": v, "limit": lim}
                         for k, (v, lim) in numbers.items()}
-    return result
+    return result, record
 
 
 def _device(device, peak):

@@ -1,5 +1,6 @@
 """A solve through the entry point that a traffic mix names
-(``entries/<entry>.py``), and the pieces that entries share."""
+(``entries/<entry>.py``), the pieces that entries share, and the port's
+own counters around it."""
 
 import numpy as np
 import torch
@@ -32,3 +33,26 @@ def merged(traffic, overrides):
     for k, v in overrides.items():
         out[k] = dict(traffic.get(k, {}), **v) if isinstance(v, dict) else v
     return out
+
+
+def _profiling():
+    try:
+        from eigensolvers_tpu_torch.utils import profiling
+    except ImportError:
+        return None
+    return profiling
+
+
+def counts():
+    """The port's counters now (``utils/profiling.py::snapshot``: span or
+    counter name -> {"calls", "seconds"}); {} where the program has
+    none."""
+    p = _profiling()
+    return p.snapshot() if p else {}
+
+
+def counts_since(before):
+    """What the port's counters gained since ``counts()`` gave
+    ``before``: the names that gained a call."""
+    p = _profiling()
+    return p.delta(before) if p else {}

@@ -109,6 +109,17 @@ def reduce_spans(prof):
             "by_stream_order": by_order}
 
 
+def program_shapes(counts):
+    """The port's ``es.apply.m<lanes>.<dtype>`` counters as
+    {"<lanes>x<dtype>": applies}."""
+    out = collections.Counter()
+    for name, c in counts.items():
+        p = name.split(".")
+        if len(p) == 4 and p[:2] == ["es", "apply"] and p[2][:1] == "m":
+            out[f"{p[2][1:]}x{p[3]}"] += c["calls"]
+    return dict(out)
+
+
 def device_s(red, inside=None, outside=()):
     """Device seconds of the operations launched inside a range named
     ``inside`` (any, where None) and inside no range named in

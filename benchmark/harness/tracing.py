@@ -57,6 +57,13 @@ class ApplyCounter:
         del self.op.matvec, self.op.matvec_lanes
 
 
+def wrapper_shapes(shapes):
+    """An ``ApplyCounter``'s (lanes, "f64" | "f32") list in the form of
+    ``spans.program_shapes``: {"<lanes>x<dtype>": applies}."""
+    return dict(collections.Counter(
+        f"{m}x{'float64' if d == 'f64' else 'float32'}" for m, d in shapes))
+
+
 def profiler(device):
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":

@@ -1,14 +1,11 @@
 """build_s (operators & kernels): the seconds of the program's operator
 build in the run's set-up, its uploads to the card included: the port's
 ``es.build`` span (``models/op_parser.py::build_sop_operator``), read from
-its counters (``utils/profiling.py::snapshot``), in which set-up's build is
-the run's only one.  Nothing where the program has no such counter."""
+its counters after set-up (the record's ``setup_counts``), in which
+set-up's build is the run's only one.  Nothing where the program has no
+such counter."""
 
 
 def read(record):
-    try:
-        from eigensolvers_tpu_torch.utils.profiling import snapshot
-    except ImportError:
-        return None
-    build = snapshot().get("es.build")
+    build = record["setup_counts"].get("es.build")
     return None if build is None else build["seconds"]

@@ -41,8 +41,8 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT))
     from benchmark.harness import core, guards
     try:
-        result = core.run(args.workload, args.seed, args.seconds,
-                          bool(args.trace), T_START)
+        result, _ = core.run(args.workload, args.seed, args.seconds,
+                             bool(args.trace), T_START)
     except guards.NoDevice as e:
         print(f"benchmark: {e}", file=sys.stderr)
         return 3

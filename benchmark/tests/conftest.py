@@ -1,7 +1,6 @@
 """CPU tests of the benchmark: run from the repository root,
 ``python -m pytest benchmark/tests -q``."""
 
-import json
 import sys
 from pathlib import Path
 
@@ -11,15 +10,20 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-# The tests' sizes: small enough for a CPU, every mix's levels still there.
-SMALL = {"ch3cn6": {"N": 3}}
-
 
 def small_sizes(config):
-    sizes = json.loads((ROOT / "benchmark" / "configs"
-                        / f"{config}.json").read_text())
-    sizes.update(SMALL[config])
+    """The configuration's sizes with its own ``tests.sizes`` over them:
+    small enough for a CPU, every mix's levels still there."""
+    from benchmark.harness import spec
+    sizes = spec.config_sizes(spec.benchmark(), config)
+    sizes.update(sizes["tests"]["sizes"])
     return sizes
+
+
+def config_of(cell):
+    """The configuration that ``cell`` runs, as BENCHMARK.json names it."""
+    from benchmark.harness import spec
+    return spec.cell(spec.benchmark(), cell)["config"]
 
 
 @pytest.fixture

@@ -10,7 +10,7 @@ import pytest
 
 from benchmark.harness import core, spec
 
-from .conftest import small_sizes
+from .conftest import config_of, small_sizes
 
 CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
 SEED = 4_000_000_007
@@ -25,7 +25,7 @@ def _over(numbers):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct(cell, cpu):
-    c = core.Cell(cell, device=cpu, sizes=small_sizes(cell.split(".")[0]),
+    c = core.Cell(cell, device=cpu, sizes=small_sizes(config_of(cell)),
                   control=True)
     recs = [c.solve(SEED, i) for i in range(2)]
     numbers, failed, _ = c.judge(recs)
@@ -87,8 +87,8 @@ def _run(cell, cpu, fault=None):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         return core.run(cell, SEED, 0.0, False, 0.0, device=cpu,
-                        sizes=small_sizes(cell.split(".")[0]),
-                        traffic=_short(cell), fault=fault)
+                        sizes=small_sizes(config_of(cell)),
+                        traffic=_short(cell), fault=fault)[0]
 
 
 @pytest.mark.parametrize("cell", CELLS)

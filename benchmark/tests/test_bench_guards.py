@@ -11,7 +11,9 @@ from benchmark import run
 from benchmark.harness import core, guards, spec
 from benchmark.harness.tracing import reduce_profile
 
-from .conftest import ROOT, small_sizes
+from .conftest import ROOT, config_of, small_sizes
+
+CELL = spec.benchmark()["workloads"][0]["name"]
 
 
 def test_forbidden_modules_compared_whole():
@@ -27,9 +29,9 @@ def test_forbidden_modules_compared_whole():
 def test_run_refuses_a_planted_jax(monkeypatch, capsys):
     """With a module of JAX loaded, the run exits 4 and prints no
     result."""
-    monkeypatch.setattr(core, "run", lambda *a, **k: {"checks": {}})
+    monkeypatch.setattr(core, "run", lambda *a, **k: ({"checks": {}}, {}))
     monkeypatch.setitem(sys.modules, "jax", type(sys)("jax"))
-    rc = run.main(["--workload", "ch3cn6.lanczos3", "--seed", "1",
+    rc = run.main(["--workload", CELL, "--seed", "1",
                    "--seconds", "1", "--trace", "0"])
     out = capsys.readouterr()
     assert rc == 4 and out.out == "" and "jax" in out.err
@@ -40,7 +42,7 @@ def test_no_card_no_result():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     p = subprocess.run([sys.executable, "benchmark/run.py", "--workload",
-                        "ch3cn6.lanczos3", "--seed", "1", "--seconds", "1",
+                        CELL, "--seed", "1", "--seconds", "1",
                         "--trace", "0"], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
     assert p.returncode == 3 and p.stdout == ""
@@ -50,8 +52,8 @@ def test_no_card_no_result():
 def test_last_line(trace, cpu, capsys):
     """The result's keys, its metrics as BENCHMARK.json names them for the
     run's kind, the checks last on both streams."""
-    result = core.run("ch3cn6.lanczos3", 3_999_999_999_7, 0.0, bool(trace),
-                      0.0, device=cpu, sizes=small_sizes("ch3cn6"))
+    result, _ = core.run(CELL, 3_999_999_999_7, 0.0, bool(trace), 0.0,
+                         device=cpu, sizes=small_sizes(config_of(CELL)))
     core.emit(result)
     out, err = capsys.readouterr()
     line = json.loads(out.strip().splitlines()[-1])
@@ -61,11 +63,11 @@ def test_last_line(trace, cpu, capsys):
     assert 0 <= line["failed"] <= line["attempted"]
     assert line["attempted"] >= 1 + trace
     kind = "per_layer" if trace else "end_to_end"
-    names = {m["name"] for m in spec.metrics_of(spec.benchmark(),
-                                                "ch3cn6.lanczos3", kind)}
+    metrics = spec.metrics_of(spec.benchmark(), CELL, kind)
     # on the CPU: no peak, no device time; the rest is there
-    assert set(line["metrics"]) == names - {"peak_mem_gib", "op_ms_per_apply",
-                                            "op_roofline", "device_idle"}
+    assert set(line["metrics"]) == {
+        m["name"] for m in metrics if m["source"] != "device_trace"} - {
+        "peak_mem_gib"}
     assert err.strip().splitlines()[-1].startswith("correct ")
     assert err.strip().splitlines()[-2].startswith("check unconverged")
 

@@ -1,20 +1,30 @@
-"""The program's spans as the benchmark reads them: the port's own apply
-counts against the benchmark's wrapper on the CPU cell, the reduction of
-a trace's ``es.*`` ranges (``harness/spans.py``), and the accepted
-metrics unmoved by the program's ranges in the trace."""
+"""The program's spans as the benchmark reads them: the port's own counts
+in the record of a traced run of the CPU cell (``core.run``), against
+the benchmark's wrapper and with and without a profiler; the per-layer
+metrics that read them; the reduction of a trace's ``es.*`` ranges
+(``harness/spans.py``); and the accepted metrics unmoved by the
+program's ranges in the trace."""
 
+import contextlib
+import io
+import math
+import warnings
 from types import SimpleNamespace
 
 import pytest
 import torch
 
-from benchmark import program_spans
-from benchmark.harness import core, spans, spec
-from benchmark.harness.tracing import ApplyCounter, profiler, reduce_profile
+from benchmark.harness import core, spans, spec, tracing
+from benchmark.harness.tracing import reduce_profile, wrapper_shapes
 
-from .conftest import small_sizes
+from .conftest import config_of, small_sizes
 
 SEED = 3_141_592_653_589
+CELL = spec.benchmark()["workloads"][0]["name"]
+# the per-layer metrics that read the benchmark's wrapper and its op.apply
+# ranges, not the port's spans
+ACCEPTED = ("applies_per_solve", "ms_per_apply", "op_ms_per_apply",
+            "op_roofline", "device_idle")
 
 
 def _prof(events):
@@ -22,51 +32,86 @@ def _prof(events):
         kineto_results=SimpleNamespace(events=lambda: list(events))))
 
 
+def _read(name, record):
+    return spec.metric_reader(name)(record)
+
+
 @pytest.fixture(scope="module")
-def cell_solves():
-    """Solve 1 of the CPU cell twice, with the wrapper on the operator:
-    profiled, then not; each with the port's counters' gain over it."""
-    from eigensolvers_tpu_torch.utils.profiling import delta, snapshot
-    cell = core.Cell("ch3cn6.lanczos3", device=torch.device("cpu"),
-                     sizes=small_sizes("ch3cn6"))
-    cell.warm_up(SEED)
-    cell.counter = ApplyCounter(cell.op)
-    out = []
-    for prof in (profiler(cell.device), None):
-        before = snapshot()
-        rec = cell.solve(SEED, 1, prof)
-        out.append((rec, delta(before), prof))
-    cell.free_operator()
+def traced_runs():
+    """The CPU cell's traced run as ``core.run`` makes it, twice: profiling
+    solve 1, as every run does, and profiling solve 0, so that one solve
+    is counted with a profiler and without.  Each: (the run's record, the
+    profiler of its profiled solve, what it printed on standard
+    error)."""
+    made, out = [], {}
+
+    def keep(device):
+        made.append(tracing.profiler(device))
+        return made[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(core, "profiler", keep)
+        for profiled in (1, 0):
+            mp.setattr(core, "PROFILED", profiled)
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err), \
+                    warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                _, record = core.run(CELL, SEED, 0.0, True, 0.0,
+                                     device=torch.device("cpu"),
+                                     sizes=small_sizes(config_of(CELL)))
+            out[profiled] = (record, made[-1], err.getvalue())
     return out
 
 
 @pytest.mark.parametrize("profiled", [True, False])
-def test_program_applies_equal_the_wrapper(cell_solves, profiled):
-    rec, counts, _ = cell_solves[0 if profiled else 1]
+def test_program_applies_equal_the_wrapper(traced_runs, profiled):
+    """Solve 0, profiled in one run and not in the other: the port's apply
+    count is the wrapper's, by shape where the wrapper records shapes,
+    and every count is the same with and without a profiler."""
+    rec, other = (traced_runs[0 if profiled else 1][0]["solves"][0],
+                  traced_runs[1 if profiled else 0][0]["solves"][0])
+    assert rec["profiled"] is profiled and other["profiled"] is not profiled
+    counts = rec["counts"]
     assert counts["es.apply"]["calls"] == rec["applies"] > 0
     if profiled:
-        assert program_spans.program_shapes(counts) == \
-            program_spans.wrapper_shapes(rec["shapes"])
-    # the same with and without a profiler
-    other = cell_solves[1 - profiled][1]
+        assert spans.program_shapes(counts) == wrapper_shapes(rec["shapes"])
     assert ({k: v["calls"] for k, v in counts.items()}
-            == {k: v["calls"] for k, v in other.items()})
+            == {k: v["calls"] for k, v in other["counts"].items()})
 
 
-def test_cell_counters_read(cell_solves):
+def test_cell_counters_read(traced_runs):
     """The counts that ``host_reads_per_solve`` reads, and the set-up's
-    build that ``build_s`` reads, are there on the CPU cell."""
-    counts = cell_solves[1][1]
+    build that ``build_s`` reads, are in the record of the CPU cell."""
+    record = traced_runs[1][0]
+    counts = record["solves"][0]["counts"]
     assert counts["es.read"]["calls"] > counts["es.minres.pass"]["calls"] > 0
-    assert spec.metric_reader("build_s")({"solves": [], "profile": None}) > 0
+    assert _read("build_s", record) > 0
+    # the process's counters: one build a run, more in a test process
+    assert record["setup_counts"]["es.build"]["calls"] >= 1
+
+
+def test_new_readings_on_the_record(traced_runs):
+    """The three readings of the port's spans from the CPU cell's record:
+    the host reads of its unprofiled solve, and nothing, not 0, from a
+    trace that holds no device time."""
+    record = traced_runs[1][0]
+    reads = _read("host_reads_per_solve", record)
+    assert math.isfinite(reads)
+    assert reads == record["solves"][0]["counts"]["es.read"]["calls"]
+    assert record["spans"]["spans"]["es.minres.pass"]["calls"] > 0
+    assert record["spans"]["device_s"] == 0
+    assert _read("loop_ms_per_pass", record) is None
+    assert _read("driver_share", record) is None
+    # with no unprofiled solve (the run that profiles solve 0): nothing
+    assert _read("host_reads_per_solve", traced_runs[0][0]) is None
 
 
 def _accepted(red, solves):
     """The accepted per-layer metrics' values from a reduction."""
     record = {"solves": solves, "profile": dict(red, wall_s=1.0, applies=2,
                                                 op_bound_s=1e-8)}
-    return {m["name"]: spec.metric_reader(m["name"])(record)
-            for m in spec.benchmark()["per_layer"] if m["name"] != "build_s"}
+    return {name: _read(name, record) for name in ACCEPTED}
 
 
 class E:
@@ -145,36 +190,41 @@ def test_reduce_spans_gives_the_new_readings():
     assert loop * 1e9 == pytest.approx(50)
     driver = spans.device_s(red, outside=["es.linear.solve"])
     assert 100 * driver / red["device_s"] == pytest.approx(100 * 50 / 260)
+    record = {"solves": [], "spans": red}
+    assert _read("loop_ms_per_pass", record) == pytest.approx(50e-9 * 1e3)
+    assert _read("driver_share", record) == pytest.approx(100 * 50 / 260)
     # the accepted reduction of the same trace, its op.apply ranges
     assert reduce_profile(_prof(TRACE))["op_device_s"] * 1e9 == \
         pytest.approx(160)
 
 
 @pytest.mark.parametrize("source", ["cell", "synthetic"])
-def test_accepted_metrics_unmoved_by_program_ranges(cell_solves, source):
+def test_accepted_metrics_unmoved_by_program_ranges(traced_runs, source):
     """One trace reduced with and without the ``es.*`` ranges (the CPU
     cell's profiled solve, and the trace above with its device time):
     every accepted metric reads the same."""
-    rec, _, prof = cell_solves[0]
+    record, prof, _ = traced_runs[1]
     events = (prof.profiler.kineto_results.events() if source == "cell"
               else TRACE)
     plain = [e for e in events if not e.name().startswith("es.")]
     assert len(plain) < len(events)
-    solves = [rec, dict(cell_solves[1][0], profiled=False)]
+    solves = record["solves"]
     with_es = _accepted(reduce_profile(_prof(events)), solves)
     assert with_es == _accepted(reduce_profile(_prof(plain)), solves)
     if source == "synthetic":
         assert None not in with_es.values()
 
 
-def test_program_spans_run(cpu, capsys):
-    """``program_spans.py`` runs a traced cell and prints its readings;
-    the harness it observes is left as it was."""
-    solve0 = core.Cell.solve
-    assert program_spans.main(
-        ["--workload", "ch3cn6.lanczos3", "--seed", str(SEED), "--seconds",
-         "0", "--trace", "1"], device=cpu, sizes=small_sizes("ch3cn6")) == 0
-    err = capsys.readouterr().err
-    assert core.Cell.solve is solve0
-    assert "[spans] host_reads_per_solve" in err and "es.build" in err
-    assert "[spans] solve 1: applies" in err
+def test_traced_run_prints_spans(traced_runs):
+    """A traced run prints the port's counts of every solve beside the
+    wrapper's, the set-up's parse and build, its spans, and its per-layer
+    metrics."""
+    record, _, err = traced_runs[1]
+    reads = record["solves"][0]["counts"]["es.read"]["calls"]
+    assert f"host reads {reads}, linear solves" in err
+    assert "[spans] solve 1: applies" in err and "(profiled)" in err
+    assert "[spans] set-up" in err and "es.build" in err
+    # the paths come with device time: none on the CPU
+    assert "[spans] device" in err and "[spans] path" not in err
+    assert "[per_layer] applies_per_solve" in err
+    assert "host_reads_per_solve" in err
