@@ -64,7 +64,9 @@ Phases (any failure raises and the script exits non-zero):
      (``csrc/sop_contract.cu``) at the benchmark cell's shapes (n = 17^6
      in f64, modes 0, 3 and 5, 14 terms on one lane and 4 on three): its
      fan-out, middle and fan-in against the plain version, timed beside
-     their byte bound;
+     their byte bound; then its pair role on one lane and three (modes 1
+     and 3 with five terms, 0 and 5 at post = 1, 0 and 2 with slots),
+     beside its bound;
    - (h) the CH3CN 6-mode cut (``ch3cn_operator(N=14, nModesCut=6)``,
      n = 7,529,536): the grouped sum-of-products apply in f64 and f32,
      fused at 256 and unfused, timed and held against a numpy apply of the
@@ -591,6 +593,70 @@ def sop_kernel_roles(dev):
                       f"at {HBM_BPS / 1e12:.2f} TB/s; {bound_ms / ms:.0%} of "
                       f"it)", flush=True)
         del F, x, Z, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def sop_pair_role(dev):
+    """Run (h0) for the pair role (``sop_pair``, ``csrc/sop_contract.cu``)
+    at the benchmark cell's shapes: n = 17^6 in f64, on one lane and three,
+    the cell's largest pair (modes 1 and 3, five terms summed into y), a
+    pair on the last mode (0 and 5, post = 1, two terms) and one that also
+    writes slots (0 and 2: three slots, three terms summed).  Each is held
+    to ``sop_pair_plain`` (f64 roundoff: 1e-12 of max |y|) and timed in
+    turns as ``sop_kernel_roles`` times the one-mode roles, beside its
+    bound: the larger of x read once, y read and written once and each slot
+    written once at the HBM rate, and the flops (2 (Na + Nb) an element a
+    term) at the f64 peak.  Returns the results by (lanes, modes)."""
+    from eigensolvers_tpu_torch.ops import operators as sop
+    N, k = 17, 6
+    n = N ** k
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for m in (1, 3):
+        x = torch.randn((m, n), generator=g, device=dev, dtype=torch.float64)
+        y = torch.randn_like(x)
+        for a, b, S, nslot in ((1, 3, 5, 0), (0, 5, 2, 0), (0, 2, 6, 3)):
+            pre, mid, post = N ** a, N ** (b - a - 1), N ** (k - 1 - b)
+            A = torch.randn((S, N, N), generator=g, device=dev,
+                            dtype=torch.float64) / N
+            B = torch.randn((S, N, N), generator=g, device=dev,
+                            dtype=torch.float64) / N
+            Z = [torch.empty_like(x) for _ in range(nslot)]
+
+            def call(fn, yc=y):
+                fn(A, B, x, Z, yc, pre, mid, post, beta=True)
+                return yc
+            got = call(sop.sop_pair, y.clone())
+            got_z = [z.clone() for z in Z]
+            want = call(sop.sop_pair_plain, y.clone())
+            err = max([relerr(got, want)]
+                      + [relerr(zg, zw) for zg, zw in zip(got_z, Z)])
+            del got, got_z, want
+            require(np.isfinite(err) and err <= 1e-12,
+                    f"(h0) sop_pair ({a}, {b}) error {err:.3e}")
+            p1 = time_ms(lambda: call(sop.sop_pair_plain), reps=3, warmup=1)
+            k1 = time_ms(lambda: call(sop.sop_pair), reps=10)
+            k2 = time_ms(lambda: call(sop.sop_pair), reps=10)
+            p2 = time_ms(lambda: call(sop.sop_pair_plain), reps=3, warmup=1)
+            ms, plain_ms = min(k1, k2), min(p1, p2)
+            passes = 3 + nslot
+            bytes_ms = passes * m * n * 8 / HBM_BPS * 1e3
+            flops_ms = S * 2 * 2 * N * m * n / PEAK_FLOPS["f64"] * 1e3
+            bound_ms = max(bytes_ms, flops_ms)
+            out[(m, (a, b))] = dict(ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bytes_ms=bytes_ms,
+                                    flops_ms=flops_ms, terms=S, slots=nslot,
+                                    max_rel_err=err)
+            print(f"[sop pair] m={m} modes ({a}, {b}) S={S} slots {nslot} "
+                  f"(pre {pre}, mid {mid}, post {post}): rel err {err:.2e}; "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms (bytes {bytes_ms:.4f}: {passes} passes "
+                  f"of {m} x {n} f64 at {HBM_BPS / 1e12:.2f} TB/s; flops "
+                  f"{flops_ms:.4f} at {PEAK_FLOPS['f64'] / 1e12:.0f} "
+                  f"TFLOP/s; {bound_ms / ms:.0%} of it)", flush=True)
+            del A, B, Z
+        del x, y
     torch.cuda.empty_cache()
     return out
 
@@ -2049,6 +2115,7 @@ def main():
     # cell's shapes
     t0 = time.perf_counter()
     sop_roles = sop_kernel_roles(dev)
+    sop_pairs = sop_pair_role(dev)
     print(f"[sop kernel] (h0) {time.perf_counter() - t0:.1f} s", flush=True)
 
     # (h): the CH3CN 6-mode cut of bench_sop: the grouped apply in f64 and
@@ -2128,7 +2195,9 @@ def main():
         [TorchVector(torch.as_tensor(g, device=dev), hopts) for g in G],
         sig_h, writeOut=False, **CH3CN_LANCZOS)
     sop_launches = sop_ops.launches["sop_contract"]
+    pair_launches = sop_ops.launches["sop_pair"]
     require(sop_launches > 0, f"{tag}: no sop_contract launch")
+    require(pair_launches > 0, f"{tag}: no sop_pair launch")
     ev = np.asarray(ev)
     picks = np.argsort(ev)[:len(G)]
     ress = []
@@ -2149,7 +2218,8 @@ def main():
           f"{report['solves']} solves, {report['iterations']} MINRES "
           f"iterations, {report.get('matmats', 0)} lane-stack and "
           f"{report.get('matvecs', 0)} single applies ({unconv} warnings), "
-          f"{sop_launches} sop_contract launches; wall {wall:.2f} s",
+          f"{sop_launches} sop_contract and {pair_launches} sop_pair "
+          f"launches; wall {wall:.2f} s",
           flush=True)
     require(max(ress) <= RES_TOL, f"{tag}: residual {max(ress):.2e}")
     require(Y[0].array.is_cuda, f"{tag}: Ritz vectors left the card")
@@ -2395,6 +2465,16 @@ def main():
              share=(sop_roles[("fan-in", 1, 14, 3)]["bound_ms"]
                     / sop_roles[("fan-in", 1, 14, 3)]["ms"]),
              **sop_roles[("fan-in", 1, 14, 3)]),
+        # its pair role at the cell's largest pair (three lanes, modes 1
+        # and 3, five terms), with its launches in (h)
+        dict(name="sop_pair", route="cuda", source=src + "sop_contract.cu",
+             replaces="none (the JAX package left the SoP apply to XLA)",
+             launches=pair_launches, run="(h)",
+             bound_by=("bytes" if sop_pairs[(3, (1, 3))]["bytes_ms"]
+                       >= sop_pairs[(3, (1, 3))]["flops_ms"] else "flops"),
+             share=(sop_pairs[(3, (1, 3))]["bound_ms"]
+                    / sop_pairs[(3, (1, 3))]["ms"]),
+             **sop_pairs[(3, (1, 3))]),
     ]}
     print(json.dumps(line))
     print(smi)

@@ -48,6 +48,48 @@
 // Measured on an H100 SXM at n = 17^6 in f64 (PERF.md): 63-68 % of the byte
 // bound in every role and mode; the same kernel with the FMAs taken out
 // was no faster, so the memory system, not the arithmetic, sets the rest.
+//
+// The pair role (sop_pair_kernel).  A chain of one-mode contractions sends
+// each multi-mode term through a slot: written by its first mode, read back
+// by its last, two passes over n a term.  The pair role contracts a term's
+// two lowest modes a < b in one pass: on the view (pre, Na, mid, Nb, post)
+// of a lane, S terms sharing (a, b) compute
+//   t_s[k, p, i, r, j, q] = sum_{u, v} B_s[j, v] A_s[i, u] x[k, p, u, r, v, q]
+// (mode a first, then b), each written to its slot (a term with more
+// modes: the first nslot terms) or summed into y (+ y when beta).
+//
+// What bounds it.  Its bytes are x read once, y read and written once and
+// each slot written once.  Against them, 2 (Na + Nb) flops an element a
+// term: at N = 17 and S = 5 that is 14 flops a byte, above the CUDA cores'
+// f64 balance (34 TFLOP/s : 3.35 TB/s) and near the FP64 tensor cores'.
+// A first design on the CUDA cores ran at 8-16 % of the byte bound; one
+// on the tensor cores whose warps all copied and computed by turns ran
+// its copies and its products one after the other, neither overlapping.
+// The design:
+//  * the products on the FP64 tensor cores (mma.sync m16n8k4, as B3's f64
+//    route): a tile of 8 consecutive columns (p, r, q) of a lane, every
+//    (u, v) of each, is an (Nb * 8) x Na matrix for mode a and, through U
+//    in shared memory, an (Na * 8) x Nb one for mode b; at N = 17 the
+//    padding of a width to whole 8 x 4 fragments wastes 40 % of the
+//    products, which the tensor cores' rate pays for;
+//  * f32 takes the same route: its factors, x, y and slots are read and
+//    written as f32, and its products and term sums are f64 (the tensor
+//    cores have no f32 product but TF32's, which drops 13 bits), so an f32
+//    term rounds once, at its store, where the one-mode roles round at
+//    each f32 FMA: an f32 operator is no less exact than with f32 FMAs;
+//  * warp specialisation: one producer warp starts every cp.async (the
+//    next tile's x into a second buffer where two fit, this tile's y), and
+//    the consumer warps, PAIR_MT m-tiles each, meet at a barrier of their
+//    own, so a copy that stalls while the memory system is busy never
+//    holds up the products;
+//  * no branch in the inner loops (a padding row or k-step reads finite
+//    data that a zero factor cancels), shared-memory offsets computed once
+//    a thread, the factors of all S terms in shared memory, and the term
+//    sum in registers: y is read and written once a tile, each element by
+//    one thread in a fixed order, with no atomics.
+// Measured on an H100 SXM at n = 17^6 in f64, 3 lanes (PERF.md): a launch
+// of one or two terms runs at 52-58 % of its byte bound, and each term
+// beyond adds ~0.27 ms, twice the tensor cores' bound for its products.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,6 +132,7 @@ __device__ __forceinline__ void madd(float* a, float4 f, float x) {
 // slab mode maps each element of its linear range to (slab, row, column).
 struct FastDiv {
     unsigned m, s;
+    FastDiv() : m(1), s(0) {}
     FastDiv(unsigned d) : s(0) {
         while ((1u << s) < d) ++s;
         m = (unsigned)(((1ull << 32) * ((1ull << s) - d)) / d + 1);
@@ -344,6 +387,418 @@ int launch(const void* F, const long long* xs, const long long* ys, int S,
     }
 }
 
+// ---------------------------------------------------------------------------
+// The pair role.  A launch: S terms on modes a < b of the (pre, Na, mid, Nb,
+// post) view, one input x, the first nslot terms to their slots, the rest
+// summed into y.  A lane's columns are its pre * mid * post positions
+// (p, r, q) in order, g = (p * mid + r) * post + q; a tile is 8 of them,
+// every (j, l) of each: (Na, Nb, 8).
+
+// D += A B for one 16 x 8 x 4 tile in IEEE f64, in the fragment order of
+// the PTX ISA: a0 = A[g][q], a1 = A[g+8][q]; b0 = B[q][g]; d0 d1 =
+// D[g][2q, 2q+1], d2 d3 = D[g+8][2q, 2q+1] (g = lane / 4, q = lane % 4).
+__device__ __forceinline__ void mma16(double (&d)[4], double a0, double a1,
+                                      double b0) {
+    asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a0), "d"(a1), "d"(b0));
+}
+
+constexpr int PAIR_MT = 3;              // m-tiles a warp, in each stage
+constexpr int PAIR_MAX_THREADS = 224;   // 16 m-tiles (N = 32) / 3: 6 + 1 warps
+constexpr int PAIR_SMEM_MAX = 227 * 1024;
+// The factors a launch keeps in shared memory, in f64, each (N, pair_row(N))
+// with zeros past column N (the caller splits larger stacks).
+constexpr int PAIR_FACTOR_BYTES = 48 * 1024;
+
+// a factor's row stride in shared memory: whole k-steps of 4, and 4 or 12
+// (mod 16) doubles, so that a fragment's 8 rows use distinct banks in pairs
+__host__ __device__ inline int pair_row(int N) {
+    const int r = (N + 3) / 4 * 4;
+    return r % 8 ? r : r + 4;
+}
+
+struct PairArgs {
+    const void* A;           // (S, Na, Na)
+    const void* B;           // (S, Nb, Nb)
+    const void* x;
+    void* y;                 // the sum's output (terms nslot..S-1)
+    void* out[MAX_TERMS];    // term s < nslot: its slot
+    int S, nslot, Na, Nb, beta, SJ, SU, nbuf;
+    long long cols, post, mid, sP, sj, sR, lane_stride, per_lane, total;
+    FastDiv by_nb, by_post, by_mid;
+};
+
+// The pair kernel: a persistent grid of blocks walks the tiles.  A block
+// is W consumer warps and one producer warp.  The producer copies
+// (cp.async) this tile's y into shared memory, and the next tile's x into
+// a second buffer where two fit, while the consumers work on this tile:
+// for each term, on the FP64 tensor cores,
+//   mode a:  U^T[(l, c), i] = sum_j X^T[(l, c), j] A^T[j, i], rows two l
+//            at a time, PAIR_MT m-tiles a warp, into U (shared, f64);
+//   mode b:  T^T[(i, c), k] = sum_l U^T[(i, c), l] B^T[l, k], rows two i
+//            at a time, into sums that stay in registers across the terms.
+// The consumers meet at a barrier of their own, so the producer's copies
+// (which stall a warp while the memory system is busy) never hold up the
+// products.  The inner loops branch once, before a last k-step that is
+// all past N (2 ceil(N / 8) k-steps, of which ceil(N / 4) are real; a
+// factor fragment past N is zero, so a fragment row or column past N adds
+// nothing), a row index past Na or Nb reads the last real row (finite,
+// cancelled by the zero factor), and a warp's m-tile past the last repeats
+// it (its results are not stored).  x and y are read and written once a
+// tile, each element by one thread in a fixed order.
+template <typename T, int NA8, int NB8>
+__global__ void __launch_bounds__(PAIR_MAX_THREADS, 1)
+sop_pair_kernel(PairArgs a) {
+    constexpr int MT = PAIR_MT;
+    constexpr int KSA = 2 * NA8, KSB = 2 * NB8;  // k-steps of the stages
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int Na = a.Na, Nb = a.Nb, S = a.S, SJ = a.SJ, SU = a.SU;
+    const int RA = pair_row(Na), RB = pair_row(Nb);
+    const int KA = (Na + 3) / 4, KB = (Nb + 3) / 4;
+    double* Fa = reinterpret_cast<double*>(smem_raw);    // (S, Na, RA)
+    double* Fb = Fa + S * Na * RA;                       // (S, Nb, RB)
+    double* U = Fb + S * Nb * RB;                        // (i, l, c): i SU
+    T* tiles = reinterpret_cast<T*>(U + Na * SU);        // y, x (, x): j SJ
+    const int xlen = Na * SJ, nbuf = a.nbuf;
+    T* Yt = tiles;
+    tiles += xlen;
+    const int tid = threadIdx.x, W = (blockDim.x >> 5) - 1;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+    const bool producer = warp == W;
+    const int M1 = (Nb + 1) / 2, M2 = (Na + 1) / 2;
+    const bool read_y = a.beta && S > a.nslot;
+    {
+        const T* A = reinterpret_cast<const T*>(a.A);
+        const T* B = reinterpret_cast<const T*>(a.B);
+        for (int e = tid; e < S * Na * RA; e += blockDim.x) {
+            const int r = e / RA, j = e - r * RA;        // r = s Na + i
+            Fa[e] = j < Na ? (double)A[r * Na + j] : 0.0;
+        }
+        for (int e = tid; e < S * Nb * RB; e += blockDim.x) {
+            const int r = e / RB, l = e - r * RB;        // r = s Nb + k
+            Fb[e] = l < Nb ? (double)B[r * Nb + l] : 0.0;
+        }
+    }
+    // this thread's shared-memory offsets
+    int xj[KSA], ul[KSB];                 // the k-steps' rows j and l
+#pragma unroll
+    for (int ks = 0; ks < KSA; ++ks)
+        xj[ks] = (4 * ks + q < Na ? 4 * ks + q : Na - 1) * SJ;
+#pragma unroll
+    for (int ks = 0; ks < KSB; ++ks)
+        ul[ks] = (4 * ks + q < Nb ? 4 * ks + q : Nb - 1) * 8 + g;
+    const int fa = g * RA + q, fb = g * RB + q;   // a fragment's (g, q)
+    // the last n-tile's row g is real
+    const bool ga = (NA8 - 1) * 8 + g < Na, gb = (NB8 - 1) * 8 + g < Nb;
+    auto consumers_sync = [&]() {
+        asm volatile("bar.sync 1, %0;\n" :: "r"(W * 32) : "memory");
+    };
+
+    // element offset of column c of tile t (its (p, r, q) in its lane), or
+    // -1 past the lane's last column
+    auto column = [&](long long t, int c) -> long long {
+        const long long lane_i = t / a.per_lane;
+        const long long col = (t - lane_i * a.per_lane) * 8 + c;
+        if (col >= a.cols) return -1;
+        const long long u = a.by_post((unsigned)col);
+        const long long p = a.by_mid((unsigned)u);
+        return lane_i * a.lane_stride + p * a.sP + (u - p * a.mid) * a.sR
+               + (col - u * a.post);
+    };
+    // the producer's lane copies column lane % 8 of every fourth row
+    auto load = [&](const void* src, long long t, T* tile) {
+        const T* V = reinterpret_cast<const T*>(src);
+        const int c = lane & 7;
+        const long long base = column(t, c);
+        if (base >= 0) {
+            for (int row = lane >> 3; row < Na * Nb; row += 4) {
+                const int j = (int)a.by_nb((unsigned)row), l = row - j * Nb;
+                cp_async(tile + j * SJ + l * 8 + c,
+                         V + base + j * a.sj + (long long)l * a.post);
+            }
+        }
+        cp_commit();
+    };
+
+    double acc[MT][NB8][4];
+    long long t = blockIdx.x;
+    if (producer && nbuf == 2 && t < a.total) load(a.x, t, tiles);
+    int b = 0;
+    for (; t < a.total; t += gridDim.x, b ^= nbuf - 1) {
+        if (producer) {
+            if (nbuf == 1) load(a.x, t, tiles);
+            cp_wait<0>();                         // x of tile t
+        }
+        __syncthreads();                          // x of tile t; the last
+                                                  // tile's reads are done
+        if (producer) {
+            if (read_y) load(a.y, t, Yt);
+            else cp_commit();
+            const long long tn = t + gridDim.x;
+            if (nbuf == 2 && tn < a.total)
+                load(a.x, tn, tiles + (b ^ 1) * xlen);
+            else cp_commit();
+            cp_wait<1>();                         // y of tile t
+            __syncthreads();                      // y
+            continue;
+        }
+        const T* Xt = tiles + b * xlen;
+        const long long colg = column(t, g);      // this thread's outputs
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+            for (int nt = 0; nt < NB8; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.0;
+        for (int s = 0; s < S; ++s) {
+            {                                     // mode a, into U
+                const double* F = Fa + s * Na * RA + fa;
+                double f[NA8][KSA];               // A^T[j][i] = A[i][j]
+#pragma unroll
+                for (int nt = 0; nt < NA8; ++nt)
+#pragma unroll
+                    for (int ks = 0; ks < KSA; ++ks)
+                        f[nt][ks] = ks < KA && (nt + 1 < NA8 || ga)
+                                    ? F[nt * 8 * RA + ks * 4] : 0.0;
+#pragma unroll
+                for (int mi = 0; mi < MT; ++mi) {
+                    const int m = warp + mi * W;
+                    const int mt = m < M1 ? m : M1 - 1;
+                    const int l0 = 2 * mt;
+                    const int o0 = l0 * 8 + g;
+                    const int o1 = (l0 + 1 < Nb ? l0 + 1 : l0) * 8 + g;
+                    double d[NA8][4];
+#pragma unroll
+                    for (int nt = 0; nt < NA8; ++nt)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) d[nt][e] = 0.0;
+#pragma unroll
+                    for (int ks = 0; ks < KSA; ++ks) {
+                        if (ks + 1 == KSA && KA < KSA) break;
+                        const double a0 = (double)Xt[xj[ks] + o0];
+                        const double a1 = (double)Xt[xj[ks] + o1];
+#pragma unroll
+                        for (int nt = 0; nt < NA8; ++nt)
+                            mma16(d[nt], a0, a1, f[nt][ks]);
+                    }
+                    if (m < M1) {
+#pragma unroll
+                        for (int nt = 0; nt < NA8; ++nt)
+#pragma unroll
+                            for (int e = 0; e < 2; ++e) {
+                                const int i = nt * 8 + 2 * q + e;
+                                if (i < Na) {
+                                    U[i * SU + o0] = d[nt][e];
+                                    if (l0 + 1 < Nb)
+                                        U[i * SU + o0 + 8] = d[nt][2 + e];
+                                }
+                            }
+                    }
+                }
+            }
+            consumers_sync();                     // U
+            {                                     // mode b, into the sums
+                const double* F = Fb + s * Nb * RB + fb;
+                double f[NB8][KSB];               // B^T[l][k] = B[k][l]
+#pragma unroll
+                for (int nt = 0; nt < NB8; ++nt)
+#pragma unroll
+                    for (int ks = 0; ks < KSB; ++ks)
+                        f[nt][ks] = ks < KB && (nt + 1 < NB8 || gb)
+                                    ? F[nt * 8 * RB + ks * 4] : 0.0;
+#pragma unroll
+                for (int ks = 0; ks < KSB; ++ks) {
+                    if (ks + 1 == KSB && KB < KSB) break;
+#pragma unroll
+                    for (int mi = 0; mi < MT; ++mi) {
+                        const int m = warp + mi * W;
+                        const int i0 = 2 * (m < M2 ? m : M2 - 1);
+                        const int i1 = i0 + 1 < Na ? i0 + 1 : i0;
+                        const double a0 = U[i0 * SU + ul[ks]];
+                        const double a1 = U[i1 * SU + ul[ks]];
+#pragma unroll
+                        for (int nt = 0; nt < NB8; ++nt)
+                            mma16(acc[mi][nt], a0, a1, f[nt][ks]);
+                    }
+                }
+            }
+            if (s < a.nslot && colg >= 0) {       // a slot: store, restart
+                T* O = reinterpret_cast<T*>(a.out[s]) + colg;
+#pragma unroll
+                for (int mi = 0; mi < MT; ++mi) {
+                    const int i0 = 2 * (warp + mi * W);
+#pragma unroll
+                    for (int nt = 0; nt < NB8; ++nt)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const int i = i0 + (e >> 1);
+                            const int k = nt * 8 + 2 * q + (e & 1);
+                            if (i < Na && k < Nb)
+                                O[i * a.sj + k * a.post] = (T)acc[mi][nt][e];
+                            acc[mi][nt][e] = 0.0;
+                        }
+                }
+            }
+            consumers_sync();                     // U is free
+        }
+        __syncthreads();                          // y of tile t
+        if (S > a.nslot && colg >= 0) {           // the sum: y (+)= it
+            T* Y = reinterpret_cast<T*>(a.y) + colg;
+#pragma unroll
+            for (int mi = 0; mi < MT; ++mi) {
+                const int i0 = 2 * (warp + mi * W);
+#pragma unroll
+                for (int nt = 0; nt < NB8; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int i = i0 + (e >> 1);
+                        const int k = nt * 8 + 2 * q + (e & 1);
+                        if (i >= Na || k >= Nb) continue;
+                        double v = acc[mi][nt][e];
+                        if (read_y) v += (double)Yt[i * SJ + k * 8 + g];
+                        Y[i * a.sj + k * a.post] = (T)v;
+                    }
+            }
+        }
+    }
+    if (producer) cp_wait<0>();
+}
+
+// shared memory of a pair launch: the factors (padded) and U in f64, a y
+// tile and nbuf x tiles, each plane padded so that a warp's fragment loads
+// and stores use distinct banks
+template <typename T>
+size_t pair_smem(int S, int Na, int Nb, int nbuf, int& SJ, int& SU) {
+    const int row = Nb * 8;
+    SU = row + 4;                   // 2 SU = 8 (mod 16) doubles
+    SJ = row + (row % 16 ? 0 : 8);  // 8 (mod 16) doubles; 8 or 24 (mod 32) floats
+    return ((size_t)S * (Na * pair_row(Na) + Nb * pair_row(Nb))
+            + (size_t)Na * SU) * sizeof(double)
+           + (1 + nbuf) * (size_t)Na * SJ * sizeof(T);
+}
+
+template <typename T, int NA8, int NB8>
+int pair_launch_width(PairArgs& a, int threads, size_t smem, void* stream) {
+    auto kernel = sop_pair_kernel<T, NA8, NB8>;
+    static int sms = 0;
+    if (!sms) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            PAIR_SMEM_MAX);
+        int dev = 0;
+        if (e == cudaSuccess) e = cudaGetDevice(&dev);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev);
+        if (e != cudaSuccess) return (int)e;
+    }
+    // blocks the card holds at once, by (threads, smem): a few shapes a run
+    static long long keys[16];
+    static int per_sm_of[16];
+    const long long key = (long long)threads << 32 | (long long)smem;
+    int per_sm = 0;
+    for (int k = 0; k < 16 && keys[k]; ++k)
+        if (keys[k] == key) per_sm = per_sm_of[k];
+    if (!per_sm) {
+        cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, threads, smem);
+        if (e != cudaSuccess) return (int)e;
+        if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+        for (int k = 0; k < 16; ++k)
+            if (!keys[k] || k == 15) {
+                keys[k] = key;
+                per_sm_of[k] = per_sm;
+                break;
+            }
+    }
+    const long long cap = (long long)per_sm * sms;
+    const long long blocks = a.total < cap ? a.total : cap;
+    kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int NA8>
+int pair_launch_b(PairArgs& a, int threads, size_t smem, void* stream) {
+    switch ((a.Nb + 7) / 8) {
+        case 1: return pair_launch_width<T, NA8, 1>(a, threads, smem, stream);
+        case 2: return pair_launch_width<T, NA8, 2>(a, threads, smem, stream);
+        case 3: return pair_launch_width<T, NA8, 3>(a, threads, smem, stream);
+        default: return pair_launch_width<T, NA8, 4>(a, threads, smem, stream);
+    }
+}
+
+template <typename T>
+int launch_pair(const void* A, const void* B, const void* x,
+                const long long* outs, void* y, int S, int nslot, int Na,
+                int Nb, long long pre, long long mid, long long post, int m,
+                long long lane_stride, int beta, int* launched,
+                void* stream) {
+    *launched = 0;
+    if (S < 1 || nslot < 0 || nslot > S || (nslot < S && !y) || Na < 1
+        || Na > MAX_WIDTH || Nb < 1 || Nb > MAX_WIDTH || m < 1 || pre < 1
+        || mid < 1 || post < 1 || pre * mid > 0x7fffffffLL
+        || pre * mid * post > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    // the terms a launch holds: their factors within PAIR_FACTOR_BYTES, the
+    // launch (one x tile) within PAIR_SMEM_MAX
+    PairArgs a;
+    int step = (int)(PAIR_FACTOR_BYTES / ((Na * pair_row(Na)
+                                           + Nb * pair_row(Nb))
+                                          * sizeof(double)));
+    step = step < MAX_TERMS ? step : MAX_TERMS;
+    while (step > 1 && pair_smem<T>(step, Na, Nb, 1, a.SJ, a.SU)
+                       > (size_t)PAIR_SMEM_MAX)
+        --step;
+    if (step < 1 || pair_smem<T>(step, Na, Nb, 1, a.SJ, a.SU)
+                    > (size_t)PAIR_SMEM_MAX)
+        return (int)cudaErrorInvalidValue;
+    a.x = x; a.y = y; a.Na = Na; a.Nb = Nb;
+    a.cols = pre * mid * post;
+    a.post = post; a.mid = mid;
+    a.sR = Nb * post; a.sj = mid * a.sR; a.sP = Na * a.sj;
+    a.lane_stride = lane_stride;
+    a.per_lane = (a.cols + 7) / 8;
+    a.total = a.per_lane * m;
+    a.by_nb = FastDiv(Nb);
+    a.by_post = FastDiv((unsigned)post);
+    a.by_mid = FastDiv((unsigned)mid);
+    // consumer warps: the m-tiles of the larger stage, PAIR_MT a warp; and
+    // the producer
+    const int mt = ((Na > Nb ? Na : Nb) + 1) / 2;
+    const int threads = ((mt + PAIR_MT - 1) / PAIR_MT + 1) * 32;
+    // runs of `step` terms in order; a run after one that summed into y
+    // adds to it
+    for (int s0 = 0; s0 < S; s0 += step) {
+        const int k = S - s0 < step ? S - s0 : step;
+        const int ks = nslot - s0 < 0 ? 0 : nslot - s0 < k ? nslot - s0 : k;
+        a.A = static_cast<const T*>(A) + (size_t)s0 * Na * Na;
+        a.B = static_cast<const T*>(B) + (size_t)s0 * Nb * Nb;
+        for (int s = 0; s < MAX_TERMS; ++s)
+            a.out[s] = s < ks ? reinterpret_cast<void*>(outs[s0 + s])
+                              : nullptr;
+        a.S = k; a.nslot = ks;
+        a.beta = beta || s0 > nslot;
+        a.nbuf = 2;                 // one x tile where two do not fit
+        size_t smem = pair_smem<T>(k, Na, Nb, 2, a.SJ, a.SU);
+        if (smem > (size_t)PAIR_SMEM_MAX) {
+            a.nbuf = 1;
+            smem = pair_smem<T>(k, Na, Nb, 1, a.SJ, a.SU);
+        }
+        int code;
+        switch ((Na + 7) / 8) {
+            case 1: code = pair_launch_b<T, 1>(a, threads, smem, stream); break;
+            case 2: code = pair_launch_b<T, 2>(a, threads, smem, stream); break;
+            case 3: code = pair_launch_b<T, 3>(a, threads, smem, stream); break;
+            default: code = pair_launch_b<T, 4>(a, threads, smem, stream);
+        }
+        if (code) return code;
+        ++*launched;
+    }
+    return 0;
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  Each launches ONE kernel on the
@@ -352,7 +807,11 @@ int launch(const void* F, const long long* xs, const long long* ys, int S,
 // returns cudaErrorInvalidValue without a launch.  xs and ys are host arrays
 // of S device addresses (ys: one when sum_out); the caller checks shapes,
 // types, devices and contiguity, 1 <= S <= 32, 1 <= N <= 32, and that the
-// factors fit FACTOR_BYTES (S * N * ceil(N / 4) * 4 elements).
+// factors fit FACTOR_BYTES (S * N * ceil(N / 4) * 4 elements).  sop_pair
+// is the exception: it launches the kernel once for each run of terms whose
+// factors and tiles fit a block's shared memory, in order, and counts the
+// launches in *launched; outs holds the nslot slots, and the caller checks
+// shapes, types, devices and contiguity, S >= 1 and 1 <= Na, Nb <= 32.
 extern "C" {
 
 int sop_contract_f32(const void* F, const long long* xs, const long long* ys,
@@ -369,6 +828,26 @@ int sop_contract_f64(const void* F, const long long* xs, const long long* ys,
                      void* stream) {
     return launch<double>(F, xs, ys, S, N, pre, post, m, lane_stride, sum_out,
                           beta, stream);
+}
+
+int sop_pair_f32(const void* A, const void* B, const void* x,
+                 const long long* outs, void* y, int S, int nslot, int Na,
+                 int Nb, long long pre, long long mid, long long post, int m,
+                 long long lane_stride, int beta, int* launched,
+                 void* stream) {
+    return launch_pair<float>(A, B, x, outs, y, S, nslot, Na, Nb, pre, mid,
+                              post, m, lane_stride, beta, launched,
+                              stream);
+}
+
+int sop_pair_f64(const void* A, const void* B, const void* x,
+                 const long long* outs, void* y, int S, int nslot, int Na,
+                 int Nb, long long pre, long long mid, long long post, int m,
+                 long long lane_stride, int beta, int* launched,
+                 void* stream) {
+    return launch_pair<double>(A, B, x, outs, y, S, nslot, Na, Nb, pre, mid,
+                               post, m, lane_stride, beta, launched,
+                               stream);
 }
 
 const char* sop_contract_error_string(int code) {

@@ -133,19 +133,26 @@ def bsr_spmm_split_library() -> ctypes.CDLL:
 _ADDRS = ctypes.POINTER(ctypes.c_longlong)
 _L = ctypes.c_longlong
 _CONTRACT = [_P, _ADDRS, _ADDRS, _I, _I, _L, _L, _I, _L, _I, _I, _P]
+# A, B, x, slots, y, S, nslot, Na, Nb, pre, mid, post, m, lane stride, beta,
+# launches made
+_PAIR = [_P, _P, _P, _ADDRS, _P, _I, _I, _I, _I, _L, _L, _L, _I, _L, _I,
+         ctypes.POINTER(_I), _P]
 
 
 def load_sop_contract(src=None) -> ctypes.CDLL:
     """Build and load ``csrc/sop_contract.cu``, or another version of it
     (``src``): for timing versions side by side."""
     return _load("sop_contract", {"sop_contract_f32": _CONTRACT,
-                                  "sop_contract_f64": _CONTRACT}, src)
+                                  "sop_contract_f64": _CONTRACT,
+                                  "sop_pair_f32": _PAIR,
+                                  "sop_pair_f64": _PAIR}, src)
 
 
 @functools.cache
 def sop_contract_library() -> ctypes.CDLL:
     """The stacked-factor mode contraction of the grouped sum-of-products
-    apply in f32 and f64 (``csrc/sop_contract.cu``), built on first call."""
+    apply in f32 and f64, one mode a launch and two modes a launch (the
+    pair role) (``csrc/sop_contract.cu``), built on first call."""
     return load_sop_contract()
 
 

@@ -11,7 +11,7 @@ buffers, so ``.to(device)`` moves them and ``state_dict()`` saves them.
   H = Σ_s c_s ⊗_d A^{(d,s)} (the ``.op`` molecule models); matvec is a
   sequence of mode-wise contractions, never the full matrix (the grouped
   operator's narrow modes through the hand-written CUDA kernel
-  ``csrc/sop_contract.cu``, :func:`sop_contract`).
+  ``csrc/sop_contract.cu``, :func:`sop_pair` and :func:`sop_contract`).
 * :class:`CallableOperator` — a matvec callable with a shape (the analogue
   of a scipy ``LinearOperator``, which ``as_operator`` wraps in one).
 * :class:`PaddedOperator` — an operator zero-embedded into a larger space.
@@ -278,9 +278,10 @@ def _factor_diagonals(factor_batch, coeffs=None):
 
 
 #: Launches of the sum-of-products contraction kernel since the last
-#: :func:`reset_launch_counts`: each CUDA call of :func:`sop_contract` adds
-#: one per launch, and nothing else does.
-launches = {"sop_contract": 0}
+#: :func:`reset_launch_counts`, by role: each CUDA call of
+#: :func:`sop_contract` (``sop_contract``) or :func:`sop_pair`
+#: (``sop_pair``) adds one per launch, and nothing else does.
+launches = {"sop_contract": 0, "sop_pair": 0}
 
 #: The widest mode the contraction kernel takes (``csrc/sop_contract.cu``
 #: keeps a thread's N sums in registers).  A group whose terms' modes are
@@ -379,73 +380,168 @@ def sop_contract(F, xs, ys, pre, post, sum_out=False, beta=False):
     count("es.sop.kernel", calls=S * m)
 
 
-def _cover(sets, highest=False):
-    """One member of each non-empty set, few distinct ones: greedily the
-    member of most sets still open (on a tie the lowest, or with
-    ``highest`` the highest); None for an empty set."""
-    pick = [None] * len(sets)
-    left = [k for k, st in enumerate(sets) if st]
-    while left:
-        tally = collections.Counter(d for k in left for d in sets[k])
-        best = min(tally, key=lambda d: (-tally[d], -d if highest else d))
-        for k in left:
-            if best in sets[k]:
-                pick[k] = best
-        left = [k for k in left if pick[k] is None]
-    return pick
+def sop_pair_plain(A, B, x, outs, y, pre, mid, post, beta=False):
+    """:func:`sop_pair` in plain PyTorch: the route of CPU tensors and the
+    reference the kernel is held to."""
+    Na, Nb = A.shape[-1], B.shape[-1]
+    X = x.reshape(-1, pre, Na, mid, Nb, post)
+    acc = None
+    for s in range(A.shape[0]):
+        t = torch.einsum("ij,lpjrvq->lpirvq", A[s], X)
+        t = torch.einsum("kv,lpirvq->lpirkq", B[s], t)
+        if s < len(outs):
+            outs[s].copy_(t.reshape(outs[s].shape))
+        else:
+            acc = t if acc is None else acc + t
+    if acc is not None:
+        if beta:
+            y.add_(acc.reshape(y.shape))
+        else:
+            y.copy_(acc.reshape(y.shape))
+
+
+def sop_pair(A, B, x, outs, y, pre, mid, post, beta=False):
+    """The pair role of the grouped sum-of-products apply: S terms on two
+    modes a < b, on the (pre, Na, mid, Nb, post) view of the lane stack x
+    (m, n).  Term s maps x to ``t_s = B_s (A_s x)`` (``A_s`` on mode a
+    first, then ``B_s`` on mode b); the first ``len(outs)`` terms write
+    ``outs[s] = t_s`` (a longer term's slot), and the others sum into y,
+    ``y = sum_s t_s``, added to y with ``beta``.
+
+    CPU tensors take :func:`sop_pair_plain`.  CUDA tensors launch the
+    kernel (``csrc/sop_contract.cu``; f32 or f64, modes at most
+    ``SOP_MAX_WIDTH`` wide, inputs, outputs and factors of one type,
+    contiguous, on one device; once for each run of terms that fits a
+    block's shared memory) or raise; each launch is counted in
+    ``launches``, and the contractions (a term on a lane) as
+    ``es.sop.pair``."""
+    if A.device.type != "cuda":
+        return sop_pair_plain(A, B, x, outs, y, pre, mid, post, beta)
+    S, Na, Nb = A.shape[0], A.shape[-1], B.shape[-1]
+    for F, N in ((A, Na), (B, Nb)):
+        if F.dtype not in (torch.float32, torch.float64) or F.ndim != 3 \
+                or tuple(F.shape) != (S, N, N) or not F.is_contiguous():
+            raise TypeError(f"sop_pair takes contiguous f32 or f64 (S, N, N) "
+                            f"factor stacks of S terms, got {F.dtype} "
+                            f"{tuple(F.shape)}")
+    if B.dtype != A.dtype or max(Na, Nb) > SOP_MAX_WIDTH:
+        raise ValueError(f"sop_pair takes two factor stacks of one type on "
+                         f"modes 1..{SOP_MAX_WIDTH} wide, got {A.dtype} "
+                         f"{Na} and {B.dtype} {Nb}")
+    nslot = len(outs)
+    if nslot > S or (nslot < S and y is None):
+        raise ValueError(f"{S} terms take at most {S} slots and a y for the "
+                         f"rest, got {nslot} slots and y {y is not None}")
+    m, n = x.shape
+    if n != pre * Na * mid * Nb * post or not 1 <= m <= 65535:
+        raise ValueError(f"lane stack {tuple(x.shape)} is not (m <= 65535, "
+                         f"{pre} * {Na} * {mid} * {Nb} * {post})")
+    for t in (x, *outs, *([y] if nslot < S else [])):
+        if t.device != A.device or t.dtype != A.dtype \
+                or tuple(t.shape) != (m, n) or not t.is_contiguous():
+            raise ValueError("sop_pair takes contiguous (m, n) lane stacks "
+                             "of the factors' type and device")
+    lib = sop_contract_library()
+    fn = lib.sop_pair_f64 if A.dtype == torch.float64 else lib.sop_pair_f32
+    addrs = (ctypes.c_longlong * max(1, nslot))(*(o.data_ptr() for o in outs))
+    made = ctypes.c_int(0)
+    code = launch(fn, A.device, A.data_ptr(), B.data_ptr(), x.data_ptr(),
+                  addrs, y.data_ptr() if y is not None else None, S, nslot,
+                  Na, Nb, pre, mid, post, m, n, int(bool(beta)),
+                  ctypes.byref(made))
+    launches["sop_pair"] += made.value
+    check(lib, code, "sop_pair")
+    count("es.sop.pair", calls=S * m)
+
+
+def kron_compress(As, Bs):
+    """sum_s As[s] (x) Bs[s] as the fewest Kronecker products that give the
+    same operator in exact arithmetic: R of them, R the numerical rank of
+    sum_s vec(As[s]) vec(Bs[s])^T (a term whose factor on one mode repeats
+    another's up to a scale, as q1 q3 and q1 q3^2 share q1, folds into it).
+    Computed in f64 and returned in the factors' type; a single term is
+    returned as it is."""
+    if len(As) < 2:
+        return list(As), list(Bs)
+    dt, (Na, Nb) = As[0].dtype, (As[0].shape[-1], Bs[0].shape[-1])
+    P = torch.stack([a.reshape(-1) for a in As], 1).double()
+    Q = torch.stack([b.reshape(-1) for b in Bs], 1).double()
+    qp, rp = torch.linalg.qr(P)
+    qq, rq = torch.linalg.qr(Q)
+    u, sig, vh = torch.linalg.svd(rp @ rq.T)
+    R = int((sig > sig[0] * len(As) * torch.finfo(torch.float64).eps).sum())
+    A = (qp @ (u[:, :R] * sig[:R])).T.reshape(R, Na, Na)
+    B = (qq @ vh[:R].T).T.reshape(R, Nb, Nb)
+    return [a.to(dt) for a in A], [b.to(dt) for b in B]
 
 
 def plan_terms(terms):
     """The kernel's launches for a sum of products ``terms`` [(c, {mode: (N,
-    N) factor})], each term on one mode or more: every term of two modes or
-    more takes a slot (a lane stack of scratch), the fan-outs write the
-    slots from x, one launch per first mode; the middle modes contract the
-    slots in place, one launch per mode and position; the fan-ins sum every
-    term into y, one launch per last mode, the one-mode terms of that mode
-    presummed and read from x.  The last modes are a greedy cover of the
-    terms (few fan-ins: each reads and writes y), the first modes one of
-    the rest; c goes into the first factor applied.  Ties go to the
-    highest last mode and the lowest first one, so that a term whose modes
-    tie is applied in ascending mode order, as the batched route and the
-    JAX package apply it (the same rounding in f32).
+    N) factor})], each term on one mode or more, applied in ascending mode
+    order (as the batched route and the JAX package apply it: the same
+    rounding in f32), c going into the first factor applied.
 
-    :returns: (slots, [(mode, [factors], [slot, or None for x], [slots, or
-        None for the sum into y])])"""
-    order, slot = [], {}
-    last = _cover([set(f) for _, f in terms], highest=True)
-    first = _cover([set(f) - {d} for (_, f), d in zip(terms, last)])
-    for k, ((_, f), a, b) in enumerate(zip(terms, first, last)):
-        mid = sorted(set(f) - {a, b})
-        order.append(([a] if a is not None else []) + mid + [b])
-        if len(f) > 1:
-            slot[k] = len(slot)
+    A term of two modes or more starts with its two lowest modes a < b in
+    the pair role: one pair launch for each (a, b) reads x once for all its
+    terms, sums the two-mode terms into y (as the fewest Kronecker products
+    that give their sum, :func:`kron_compress`) and writes each longer
+    term's slot (a lane stack of scratch).  Such a term's other modes follow
+    in ascending order, each but the last in place in its slot (a middle),
+    the last summing it into y (a fan-in: one launch per mode, the one-mode
+    terms of that mode presummed and read from x).
+
+    :returns: (slots, [launch]): a launch is ("pair", a, b, [factors on a],
+        [factors on b], [slots of its first terms]; the other terms sum into
+        y) or (mode, [factors], [slot, or None for x], [slots, or None for
+        the sum into y])"""
+    order = [sorted(f) for _, f in terms]
+    slot = {k: s for s, k in enumerate(k for k, o in enumerate(order)
+                                       if len(o) > 2)}
 
     def factor(k, pos):
         c, f = terms[k]
         return f[order[k][pos]] * c if pos == 0 else f[order[k][pos]]
 
     plan = []
-    for a in sorted({order[k][0] for k in slot}):
-        ks = [k for k in slot if order[k][0] == a]
-        plan.append((a, [factor(k, 0) for k in ks], [None] * len(ks),
-                     [slot[k] for k in ks]))
-    pos = 1
-    while any(len(order[k]) > pos + 1 for k in slot):
+    for a, b in sorted({tuple(o[:2]) for o in order if len(o) > 1}):
+        ks = [k for k in slot if order[k][:2] == [a, b]]
+        sums = [k for k, o in enumerate(order) if o == [a, b]]
+        fa, fb = kron_compress([factor(k, 0) for k in sums],
+                               [factor(k, 1) for k in sums])
+        plan.append(("pair", a, b, [factor(k, 0) for k in ks] + fa,
+                     [factor(k, 1) for k in ks] + fb, [slot[k] for k in ks]))
+    for pos in range(2, max(map(len, order), default=0) - 1):
         here = [k for k in slot if len(order[k]) > pos + 1]
         for d in sorted({order[k][pos] for k in here}):
             ks = [k for k in here if order[k][pos] == d]
             plan.append((d, [factor(k, pos) for k in ks],
                          [slot[k] for k in ks], [slot[k] for k in ks]))
-        pos += 1
-    for b in sorted(set(last)):
-        single = [k for k in range(len(terms))
-                  if k not in slot and last[k] == b]
+    last = {k: o[-1] for k, o in enumerate(order) if len(o) != 2}
+    for b in sorted(set(last.values())):
+        single = [k for k in last if k not in slot and last[k] == b]
         many = [k for k in slot if last[k] == b]
         facs = [sum(factor(k, 0) for k in single)] if single else []
         facs += [factor(k, len(order[k]) - 1) for k in many]
         plan.append((b, facs, [None] * bool(single)
                      + [slot[k] for k in many], None))
     return len(slot), plan
+
+
+def _share_plans(groups, budget):
+    """Kernel groups [(dims, terms)] as few plans: a group joins the first
+    plan on the same modes while the plan's slots (its terms of three modes
+    or more) stay within ``budget``, so that a pair launch or a fan-in
+    serves the terms of every group it holds."""
+    plans = []
+    for dims, terms in groups:
+        into = next((k for k, (d, t) in enumerate(plans) if list(d) ==
+                     list(dims) and sum(len(f) > 2 for _, f in t + terms)
+                     <= budget), None)
+        if into is None:
+            plans.append((dims, terms))
+        else:
+            plans[into] = (dims, plans[into][1] + terms)
+    return plans
 
 
 def _gemm_mode(F, X, Y, pre, post, accumulate):
@@ -609,10 +705,13 @@ class GroupedSoPOperator(AbstractOperator):
 
     * every factor real and at most ``SOP_MAX_WIDTH`` wide (physical
       groups, and the groups of an unfused operator): the kernel's
-      contractions, mode by mode (:func:`plan_terms`, :func:`sop_contract`);
-      its scratch lane stacks are at most as many vectors as the largest
-      group has terms (the (S, n) stack of the batched route), so lanes
-      are taken a few at a time where a group has many terms;
+      contractions (:func:`plan_terms`): a term's two lowest modes in one
+      pass (:func:`sop_pair`), its others mode by mode
+      (:func:`sop_contract`); in f64 the groups on the same modes share a
+      plan (:func:`_share_plans`); its scratch lane stacks are at most as
+      many vectors as the largest group has terms (the (S, n) stack of the
+      batched route), so lanes are taken a few at a time where a plan has
+      many;
     * one wider mode (the presummed single-super-mode groups): one cuBLAS
       GEMM (``es.sop.gemm``), in place in y;
     * several modes, one wider (or complex factors): the batched
@@ -845,6 +944,14 @@ class GroupedSoPOperator(AbstractOperator):
                 kernel.append((dims, terms))
         self._budget = max((getattr(self, f"g{gi}f0").shape[0]
                             for gi in range(len(self._modes))), default=0)
+        # In f64 the kernel groups on the same modes share a plan: a pair
+        # launch or a fan-in serves the terms of all of them (1.0 ms less of
+        # a 3-lane apply of the benchmark's CH3CN cut, PERF.md).  In f32
+        # each keeps a plan of its own, summed into y in group order: the
+        # f32 rounding of the JAX package's apply, which sharing would move
+        # (tests/test_torch_graft_entry.py).
+        if self.dtype == torch.float64:
+            kernel = _share_plans(kernel, self._budget)
         names = itertools.count()
 
         def buffer(t):
@@ -854,6 +961,17 @@ class GroupedSoPOperator(AbstractOperator):
 
         def view(dims, mode):
             return (int(np.prod(dims[:mode])), int(np.prod(dims[mode + 1:])))
+
+        def entry(dims, lc):
+            if lc[0] == "pair":
+                _, a, b, fa, fb, dsts = lc
+                return ("pair", int(np.prod(dims[:a])),
+                        int(np.prod(dims[a + 1:b])), int(np.prod(dims[b + 1:])),
+                        buffer(torch.stack(fa)), buffer(torch.stack(fb)), dsts,
+                        len(fa) > len(dsts))
+            mode, facs, srcs, dsts = lc
+            return ("mode", *view(dims, mode), buffer(torch.stack(facs)), srcs,
+                    dsts)
 
         steps = []
         for k, (mode, F) in enumerate(gemm):
@@ -868,9 +986,8 @@ class GroupedSoPOperator(AbstractOperator):
                 terms = terms + [(idc, {d: torch.eye(dims[d],
                                                      dtype=self.dtype)})]
             slots, plan = plan_terms(terms)
-            steps.append(("kernel", slots, [
-                (*view(dims, mode), buffer(torch.stack(facs)), srcs, dsts)
-                for mode, facs, srcs, dsts in plan], not gemm and k == 0))
+            steps.append(("kernel", slots, [entry(dims, lc) for lc in plan],
+                          not gemm and k == 0))
         steps += [("batched", gi) for gi in batched]
         self._steps, self._id_first = steps, not (gemm or kernel)
 
@@ -897,7 +1014,16 @@ class GroupedSoPOperator(AbstractOperator):
                     k = min(lanes, m - l0)
                     Xc, Yc = X[l0:l0 + k], Y[l0:l0 + k]
                     first = writes
-                    for pre, post, name, srcs, dsts in plan:
+                    for lc in plan:
+                        if lc[0] == "pair":
+                            _, pre, mid, post, fa, fb, dsts, sums = lc
+                            sop_pair(getattr(self, fa).to(dt),
+                                     getattr(self, fb).to(dt), Xc,
+                                     [Z[s, :k] for s in dsts], Yc, pre, mid,
+                                     post, beta=not first)
+                            first = first and not sums
+                            continue
+                        _, pre, post, name, srcs, dsts = lc
                         ins = [Xc if s is None else Z[s, :k] for s in srcs]
                         outs = [Yc] if dsts is None else \
                             [Z[s, :k] for s in dsts]

@@ -785,12 +785,90 @@ def test_sop_contract_refuses_what_it_does_not_take(dev):
         kernels.check(lib, code, "sop_contract")
 
 
+# The pair role (sop_pair) against its plain version: S = 34 terms on two
+# modes of the (pre, Na, mid, Nb, post) view (two launches or more: a
+# launch holds at most 32 terms, their factors within 48 KB in f64), as a sum
+# into y, with and without beta, as slots, and both; pre = 1, adjacent
+# modes (mid = 1), the last mode (post = 1), post 3, 17, 33 and 40 (a
+# tile's 8 columns across units), N 9, 17 and 32.
+PAIR_SHAPES = [(1, 17, 17, 17, 40), (9, 17, 1, 17, 1), (3, 9, 5, 9, 17),
+               (2, 32, 1, 32, 3), (2, 9, 3, 17, 33)]
+PAIR_ROLES = {"sum": (0, False), "beta": (0, True), "slots": (34, False),
+              "both": (5, True)}
+
+
+@pytest.mark.parametrize("m", [1, 3, 5])
+@pytest.mark.parametrize("role", list(PAIR_ROLES))
+@pytest.mark.parametrize("pre,Na,mid,Nb,post", PAIR_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_sop_pair_matches_plain(dev, pre, Na, mid, Nb, post, role, m, dtype,
+                                tol):
+    """The kernel against the plain einsums in the same type; the bound is
+    summation-order roundoff (Na + Nb products a term, 34 terms a sum; the
+    kernel sums f32 in f64)."""
+    from eigensolvers_tpu_torch.ops import operators as ops
+    S, (nslot, beta) = 34, PAIR_ROLES[role]
+    g = torch.Generator(device=dev).manual_seed(Na * Nb + post)
+    n = pre * Na * mid * Nb * post
+    A = torch.randn((S, Na, Na), generator=g, device=dev, dtype=dtype)
+    B = torch.randn((S, Nb, Nb), generator=g, device=dev, dtype=dtype)
+    x = torch.randn((m, n), generator=g, device=dev, dtype=dtype)
+    y = None if nslot == S else torch.randn_like(x)
+    outs = [torch.empty_like(x) for _ in range(nslot)]
+    ref_outs = [torch.empty_like(x) for _ in range(nslot)]
+    ref_y = None if y is None else y.clone()
+    ops.reset_launch_counts()
+    ops.sop_pair(A, B, x, outs, y, pre, mid, post, beta=beta)
+    torch.cuda.synchronize()
+    ops.sop_pair_plain(A, B, x, ref_outs, ref_y, pre, mid, post, beta=beta)
+    assert ops.launches["sop_pair"] >= 2         # the table holds 32 terms
+    assert ops.launches["sop_contract"] == 0
+    for got, want in zip(outs + [y] * (y is not None),
+                         ref_outs + [ref_y] * (y is not None)):
+        assert _relerr(got, want) <= tol
+
+
+def test_sop_pair_refuses_what_it_does_not_take(dev):
+    """The wrapper raises on what the pair kernel does not take, and a
+    launch the library refuses raises through ``check``."""
+    import ctypes
+    from eigensolvers_tpu_torch.ops import kernels, operators as ops
+    f64 = dict(device=dev, dtype=torch.float64)
+    A, B = torch.randn((2, 33, 33), **f64), torch.randn((2, 5, 5), **f64)
+    x = torch.randn((1, 2 * 33 * 5), **f64)
+    with pytest.raises(ValueError, match="wide"):
+        ops.sop_pair(A, B, x, [], torch.empty_like(x), 1, 1, 2)
+    A = torch.randn((2, 4, 4), **f64)
+    x = torch.randn((1, 2 * 4 * 5), **f64)
+    with pytest.raises(ValueError, match="lane stacks"):
+        ops.sop_pair(A, B, x, [], x.float(), 1, 1, 2)
+    with pytest.raises(ValueError, match="lane stack"):
+        ops.sop_pair(A, B, x, [], torch.empty_like(x), 1, 1, 3)
+    with pytest.raises(ValueError, match="slots"):
+        ops.sop_pair(A, B, x, [torch.empty_like(x)], None, 1, 1, 2)
+    with pytest.raises(TypeError):
+        ops.sop_pair(A.to(torch.int64), B, x, [], torch.empty_like(x), 1, 1,
+                     2)
+    with pytest.raises(ValueError, match="one type"):
+        ops.sop_pair(A, B.float(), x, [], torch.empty_like(x), 1, 1, 2)
+    lib = kernels.sop_contract_library()
+    addr = (ctypes.c_longlong * 1)(x.data_ptr())
+    made = ctypes.c_int(-1)
+    code = kernels.launch(lib.sop_pair_f64, A.device, A.data_ptr(),
+                          B.data_ptr(), x.data_ptr(), addr, x.data_ptr(), 0,
+                          0, 4, 5, 1, 1, 2, 1, 40, 0, ctypes.byref(made))
+    assert made.value == 0
+    with pytest.raises(RuntimeError, match="sop_pair launch failed"):
+        kernels.check(lib, code, "sop_pair")
+
+
 @pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12), (np.float32, 1e-5)])
 def test_ch3cn_lane_apply_and_solve_run_the_sop_kernel(dev, dtype, tol):
-    """A fused CH3CN cut on the card: its physical groups through the kernel,
-    the presummed 36-wide ones as GEMMs, equal to the plain route on the
-    CPU; a short block solve counts the kernel's contractions and no
-    row-by-row apply."""
+    """A fused CH3CN cut on the card: its physical groups through the kernel
+    (the pair role and the one-mode roles), the presummed 36-wide ones as
+    GEMMs, equal to the plain route on the CPU; a short block solve counts
+    the kernel's contractions and no row-by-row apply."""
     from eigensolvers_tpu_torch import TorchVector, inexactLanczosDiagonalization
     from eigensolvers_tpu_torch.models.molecules import ch3cn_operator
     from eigensolvers_tpu_torch.ops import operators as ops
@@ -822,6 +900,8 @@ def test_ch3cn_lane_apply_and_solve_run_the_sop_kernel(dev, dtype, tol):
     counts = profiling.delta(before)
     assert np.all(np.isfinite(np.asarray(ev)))
     assert ops.launches["sop_contract"] > 0
+    assert ops.launches["sop_pair"] > 0
     assert counts["es.sop.kernel"]["calls"] > 0
+    assert counts["es.sop.pair"]["calls"] > 0
     assert counts["es.sop.gemm"]["calls"] > 0
     assert "es.apply.rowwise" not in counts

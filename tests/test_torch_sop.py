@@ -15,6 +15,8 @@ Tolerances (f64 throughout):
   the JAX run and the exact level to 1e-9 relative (1e-10 inner solves,
   eConv 1e-10)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -229,11 +231,30 @@ def test_grouped_apply_on_physical_modes(case, lanes):
     H = np.asarray(jop.to_dense())
     _close(top.to_dense(), H)
     kinds = [s[0] for s in top._steps]
-    launches = [lc for s in top._steps if s[0] == "kernel" for lc in s[2]]
     assert "kernel" in kinds and "batched" not in kinds
     assert ("gemm" in kinds) == (case == "fuse128")
-    if case != "unfused3":
-        assert any(srcs == dsts for *_, srcs, dsts in launches)   # middle
+    # The plan: every term of two modes or more starts in a pair launch (the
+    # two-mode terms of a pair summed as the fewest Kronecker products); a
+    # two-mode term takes no slot (the slots are the longer terms'), and
+    # each slot a pair launch writes is read by the fan-in of its term's
+    # last mode.
+    parts = getattr(top, "_parts", [[d] for d in range(len(top.dims))])
+    owner = {d: i for i, p in enumerate(parts) for d in p}
+    multi = [len(t.factors) for t in tspec.terms
+             if len({owner[d] for d in t.factors}) > 1]
+    pairs = [lc for s in top._steps if s[0] == "kernel" for lc in s[2]
+             if lc[0] == "pair"]
+    slots = sum(s[1] for s in top._steps if s[0] == "kernel")
+    assert slots == sum(k > 2 for k in multi)
+    summed = sum(getattr(top, lc[4]).shape[0] - len(lc[6]) for lc in pairs)
+    assert 0 < summed <= sum(k == 2 for k in multi)
+    assert (slots > 0) == (case != "unfused3")     # a term of three modes
+    for step in top._steps:
+        if step[0] == "kernel":
+            written = [d for lc in step[2] if lc[0] == "pair" for d in lc[6]]
+            read = [z for lc in step[2] if lc[0] == "mode" and lc[5] is None
+                    for z in lc[4] if z is not None]
+            assert sorted(written) == sorted(read) == list(range(step[1]))
     # .groups and .factors as the fused build gives them, bit for bit
     if "fuse" in kw:
         dims = [b.N for b in tbases]
@@ -280,3 +301,99 @@ def test_grouped_apply_on_physical_modes(case, lanes):
     if lanes and "fuse" in kw:
         _close(cop.matvec_lanes(torch.as_tensor(X)), want)
     _close(top.diagonal(), np.diag(H))
+
+
+# The pair role's plain version (the CPU route of ``sop_pair``, and the
+# reference the kernel is held to on the card) against two one-mode
+# contractions, mode a then mode b, on the (pre, Na, mid, Nb, post) view:
+# the pre = 1, mid = 1 (adjacent modes) and post = 1 (the last mode) edges.
+PAIR_VIEWS = [(1, 3, 2, 4, 5), (2, 3, 1, 4, 5), (2, 3, 4, 5, 1),
+              (3, 2, 2, 3, 2)]
+
+
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("view", PAIR_VIEWS,
+                         ids=["pre1", "mid1", "post1", "inner"])
+def test_pair_plain_is_two_one_mode_contractions(view, m):
+    pre, Na, mid, Nb, post = view
+    rng = np.random.RandomState(sum(view) + m)
+    S, nslot = 4, 2
+    A = torch.as_tensor(rng.standard_normal((S, Na, Na)))
+    B = torch.as_tensor(rng.standard_normal((S, Nb, Nb)))
+    x = torch.as_tensor(rng.standard_normal((m, pre * Na * mid * Nb * post)))
+    y0 = torch.as_tensor(rng.standard_normal(x.shape))
+    want = []
+    for s in range(S):
+        u, t = torch.empty_like(x), torch.empty_like(x)
+        tops.sop_contract_plain(A[s:s + 1], [x], [u], pre, mid * Nb * post)
+        tops.sop_contract_plain(B[s:s + 1], [u], [t], pre * Na * mid, post)
+        want.append(t)
+    for beta in (False, True):
+        outs = [torch.empty_like(x) for _ in range(nslot)]
+        y = y0.clone()
+        tops.sop_pair_plain(A, B, x, outs, y, pre, mid, post, beta=beta)
+        for got, w in zip(outs, want):
+            _close(got, w)
+        _close(y, sum(want[nslot:]) + (y0 if beta else 0))
+    outs = [torch.empty_like(x) for _ in range(S)]        # slots alone
+    tops.sop_pair(A, B, x, outs, None, pre, mid, post)   # CPU: the plain
+    for got, w in zip(outs, want):
+        _close(got, w)
+
+
+@pytest.mark.parametrize("case", list(PHYSICAL))
+def test_plan_has_no_fan_out(case):
+    """Every multi-mode term of a kernel group starts in a pair launch: no
+    one-mode launch writes a slot from x, and the one-mode launches that
+    write slots contract them in place (middles)."""
+    top = tmol.ch3cn_operator(device=CPU, **PHYSICAL[case])[0]
+    launches = [lc for s in top._steps if s[0] == "kernel" for lc in s[2]]
+    assert any(lc[0] == "pair" for lc in launches)
+    for lc in launches:
+        if lc[0] == "mode" and lc[5] is not None:
+            assert lc[4] == lc[5] and None not in lc[4]
+
+
+def test_plan_of_four_mode_terms():
+    """Terms on four modes beside terms on one, two and three: the two
+    lowest modes of each in a pair launch into a slot, the third in place
+    (one middle launch for both), the fourth in a fan-in; the apply equals
+    the dense sum of the terms' Kronecker products."""
+    rng = np.random.RandomState(7)
+    dims = [2, 3, 2, 3, 2]
+    supports = [(0,), (3,), (0, 2), (1, 3), (1, 3), (0, 1, 4), (1, 2, 3, 4),
+                (0, 2, 3, 4)]
+    terms = [(rng.standard_normal(),
+              {d: rng.standard_normal((dims[d], dims[d])) for d in sup})
+             for sup in supports]
+    slots, plan = tops.plan_terms([(c, {d: torch.as_tensor(m)
+                                        for d, m in f.items()})
+                                   for c, f in terms])
+    assert slots == 3
+    assert [lc[1:3] for lc in plan if lc[0] == "pair"] == \
+        [(0, 1), (0, 2), (1, 2), (1, 3)]
+    middles = [lc for lc in plan if lc[0] != "pair" and lc[3] is not None]
+    assert [(lc[0], len(lc[2])) for lc in middles] == [(3, 2)]
+    assert middles[0][2] == middles[0][3]
+    op = tops.GroupedSoPOperator.from_terms(len(dims), dims, terms,
+                                            device=CPU)
+    H = sum(c * functools.reduce(np.kron, [f.get(d, np.eye(n))
+                                           for d, n in enumerate(dims)])
+            for c, f in terms)
+    X = rng.standard_normal((3, H.shape[0]))
+    _close(op.matvec_lanes(torch.as_tensor(X)), X @ H.T)
+
+
+@pytest.mark.parametrize("rank", [1, 2, 5])
+def test_kron_compress_keeps_the_sum(rank):
+    """Five Kronecker products whose mode-a factors span ``rank``
+    dimensions come back as ``rank`` products with the same sum."""
+    rng = np.random.RandomState(rank)
+    basis = rng.standard_normal((rank, 4, 4))
+    As = [torch.as_tensor(np.tensordot(rng.standard_normal(rank), basis, 1))
+          for _ in range(5)]
+    Bs = [torch.as_tensor(rng.standard_normal((3, 3))) for _ in range(5)]
+    A, B = tops.kron_compress(As, Bs)
+    assert len(A) == len(B) == rank
+    want = sum(np.kron(as_np(a), as_np(b)) for a, b in zip(As, Bs))
+    _close(sum(np.kron(as_np(a), as_np(b)) for a, b in zip(A, B)), want)
